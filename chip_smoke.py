@@ -7,9 +7,9 @@ and this checkout; without them it exits non-zero before printing any
 result.  Phases, each of which fails the run on any error:
 
 1. Environment: the card's name and power limit, torch and CUDA
-   versions, and the seconds the four kernels took to build (one nvcc
+   versions, and the seconds the six kernels took to build (one nvcc
    per source, all started together).
-2. The slice (the port's main path): an 8-shard hash-partitioned GLORAN
+2. The store's slice: an 8-shard hash-partitioned GLORAN
    ``Engine`` on ``cuda`` with the paper's default ``LSMConfig`` loads
    3 M uniform keys in [0, 2^28) with 1% range deletes (82 deletes of
    length 256 after every 8192-put batch), then answers 64 lookup
@@ -24,20 +24,44 @@ result.  Phases, each of which fails the run on any error:
    device's busy time over a few of them.
 3. The per-level route: the same lookups with the cascade off (bloom
    and interval kernels) must return the same results.
-4. Each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (one shard's lookup sub-batch against
+4. Each store kernel against its plain PyTorch version on the card, at
+   the shapes the slice gives it (one shard's lookup sub-batch against
    the store's own pack, filter and DR-tree level; merge runs of 2^19
    and 2^16), bit-exact, with its median time, the plain version's
    time, its bound and, for merge-rank, ``torch.searchsorted`` as a
    yardstick.
+5. The model stack's slice: zamba2-7b at full width and depth (81
+   layers, d_model 3584, random weights from ``--seed``).  In f32, a
+   prefill of 2 x 128 tokens must launch the SSD kernel 81 times and
+   the flash kernel 13 times, and its last logits and every cache entry
+   must equal a teacher-forced ``decode_step`` loop over the same tokens
+   (no kernel on that path) within 1e-3 of the decode side's largest
+   magnitude.  In bf16 (the config's type), a timed prefill of 4 x 2048
+   tokens (launches counted again), its time by kernel family, then
+   ``ServeLoop`` over 4 sessions registered in a ``SessionRegistry`` on
+   ``cuda`` for 16 steps: decode ms a step and tokens/s.
+6. The SSD and flash kernels against their plain versions at the bf16
+   prefill's shapes (SSD: 4 x 112 heads, chunks of 128, p = n = 64;
+   flash: 4 x 2048, 32 heads of 112), the SSD kernel within 1e-4 of the
+   output's largest magnitude (f32 sums in another order), each element
+   of the flash kernel's bf16 output within 2^-7 of its magnitude +
+   2^-12 (one bf16 ulp), with their times, bounds and, for flash,
+   ``scaled_dot_product_attention`` as a yardstick.  The flash kernel
+   run with the softmax scale of D = 128 must fail that tolerance.
+   Then both kernels over a sweep of other shapes in f32 and bf16 (flash
+   in f32 within 1e-4).
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record, the one before
+it the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import argparse
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -51,6 +75,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak, same sheet
 SECTOR = 32
 UNIVERSE = 1 << 28
 PUT_BATCH = 8192
@@ -67,6 +92,10 @@ KERNEL_SOURCES = {
               "src/repro/kernels/bloom/kernel.py:52"),
     "interval": ("src/repro_torch/csrc/interval.cu",
                  "src/repro/kernels/interval/kernel.py:61"),
+    "ssd": ("src/repro_torch/csrc/ssd.cu",
+            "src/repro/kernels/ssd/kernel.py:49"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:82"),
 }
 
 
@@ -197,6 +226,21 @@ def max_abs_err(a, b) -> float:
     return float((a.to(b.dtype) - b).abs().max().item()) if a.numel() else 0.0
 
 
+def allowance_used(got, want, atol: float, rtol: float = 0.0) -> float:
+    """The largest ``|got - want| / (atol + rtol * |want|)`` over the
+    elements: at most 1 is within tolerance.  With ``rtol`` 0 the error
+    is taken in ``want``'s own type, so integers compare exactly, and
+    both 0 is bit-exact (0 or inf)."""
+    if isinstance(got, tuple):
+        return max(allowance_used(x, y, atol, rtol)
+                   for x, y in zip(got, want))
+    if not rtol:
+        err = max_abs_err(got, want)
+        return err / atol if atol else (0.0 if err == 0 else math.inf)
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / (atol + rtol * w.abs())).max())
+
+
 def search_sectors(cnt: int, n: int) -> int:
     """Distinct 32-byte sectors n binary searches over cnt sorted u32
     touch below the levels they share: about log2(cnt / n) each, the
@@ -303,19 +347,10 @@ def device_busy(eng, batches) -> str:
                         f"{e.count}" for e in top))
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
+def store_phases(card: str) -> list[dict]:
+    """Phases 2-4: the store's slice, its per-level route and its four
+    kernels against their plain versions; returns their records."""
     from repro_torch.kernels import native
-
-    # 1. environment + build
-    smi, kind = environment()
-    card = f"[{smi}]"
-    t0 = time.perf_counter()
-    native.build_all()
-    log(f"kernel build {time.perf_counter() - t0:.3f} s "
-        f"({len(native.KERNELS)} sources)")
 
     # 2. the slice, cascade on: counts are zeroed just before the load
     # and read just after the lookups.
@@ -400,11 +435,42 @@ def main() -> int:
     records = kernel_checks(eng, views, main_launches,
                             route_launches, card)
     eng.close()
-    log(json.dumps({"kernels": records}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return records
+
+
+def check_kernel(name, launches, kernel, plain, bytes_, card, *, ops=0,
+                 tol=0.0, rtol=0.0, library=None) -> dict:
+    """One kernel against its plain version on the same inputs (every
+    element within ``tol + rtol * |plain|``; both 0 is bit-exact), its
+    median device time, the plain version's and a library call's time,
+    and its bound: the larger of ``bytes_`` over the HBM rate and
+    ``ops`` over the bf16 tensor-core peak.  The counts of the main-path
+    windows were read already; these launches fall outside them."""
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    err = max_abs_err(got, want)
+    used = allowance_used(got, want, tol, rtol)
+    if not used <= 1:
+        raise AssertionError(f"{name}: kernel differs from plain version "
+                             f"(max abs err {err}, tolerance {tol} + "
+                             f"{rtol} |plain|: {used} of it used)")
+    ms = time_kernel_ms(kernel)
+    plain_ms = time_host_ms(plain)
+    lib_ms = time_kernel_ms(library) if library else None
+    by_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / BF16_TENSOR_FLOPS * 1e3
+    bound = max(by_bytes, by_ops)
+    src, replaces = KERNEL_SOURCES[name]
+    log(f"{name}: max abs err {err} (tolerance {tol} + {rtol} |plain|, "
+        f"{used} of it used); {ms:.6f} ms (plain "
+        f"{plain_ms:.6f} ms, library {lib_ms}, bound {bound:.6f} ms from "
+        f"{bytes_} B and {ops} FLOP) {card}")
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": lib_ms}
 
 
 def kernel_checks(eng, views, main_launches, route_launches,
@@ -433,28 +499,8 @@ def kernel_checks(eng, views, main_launches, route_launches,
     records = []
 
     def record(name, launches, kernel, plain, bytes_, library=None):
-        # The counts of the main-path windows were read already; the
-        # comparisons below launch outside them.
-        got = kernel()
-        torch.cuda.synchronize()
-        want = plain()
-        err = max_abs_err(got, want)
-        if err != 0.0:
-            raise AssertionError(f"{name}: kernel differs from plain "
-                                 f"version (max abs err {err})")
-        ms = time_kernel_ms(kernel)
-        plain_ms = time_host_ms(plain)
-        lib_ms = time_kernel_ms(library) if library else None
-        bound = bytes_ / HBM_BYTES_PER_S * 1e3
-        src, replaces = KERNEL_SOURCES[name]
-        log(f"{name}: bit-exact; {ms:.6f} ms (plain {plain_ms:.6f} ms, "
-            f"library {lib_ms}, bound {bound:.6f} ms from {bytes_} B) "
-            f"{card}")
-        records.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound, "bound_by": "bytes",
-                        "library_ms": lib_ms})
+        records.append(check_kernel(name, launches, kernel, plain, bytes_,
+                                    card, library=library))
 
     # cascade: shard 0's pack, one shard's lookup sub-batch
     st = views[0].state
@@ -516,6 +562,379 @@ def kernel_checks(eng, views, main_launches, route_launches,
            12 * n + SECTOR * (min(search_sectors(len(g.areas), n),
                                   len(g.areas) // 8 + 1) + 3 * n))
     return records
+
+
+# ---------------------------------------------------------- model phase
+MODEL_ARCH = "zamba2-7b"
+CHECK_PREFILL = (2, 128)  # f32 prefill held to teacher-forced decode
+SERVE_PREFILL = (4, 2048)  # bf16; prefill_32k's 32 x 32768 is cut
+SERVE_PROMPT, SERVE_STEPS = 8, 16
+F32_TOL = 1e-3  # max |prefill - decode| over the decode side's max |.|
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_prefill_launches(launches: dict, cfg) -> dict:
+    """A zamba2 prefill launches the SSD kernel once a Mamba2 layer and
+    the flash kernel once a shared-attention application."""
+    want = {"ssd": cfg.n_layers,
+            "flash_attention": cfg.n_layers // cfg.hybrid_attn_every}
+    got = {k: launches[k] for k in want}
+    assert got == want, (got, want)
+    return got
+
+
+def time_breakdown(fn, card: str) -> str:
+    """Device time of one call by kernel family, from the profiler, and
+    the device's busy share of the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    fams: dict[str, list] = {}
+    other: dict[str, float] = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0)
+        if us <= 0:
+            continue
+        fam = kernel_family(e.key)
+        f = fams.setdefault(fam, [0.0, 0])
+        f[0] += us
+        f[1] += e.count
+        if fam == "other":
+            other[e.key[:60]] = us
+    if not fams:
+        return "device time not measured (the profiler saw no kernels)"
+    busy = sum(v[0] for v in fams.values())
+    parts = "; ".join(f"{k} {v[0]:.1f} us / {v[1]} launches"
+                      for k, v in sorted(fams.items(), key=lambda x: -x[1][0]))
+    top = "; ".join(f"{k} {us:.1f} us" for k, us in
+                    sorted(other.items(), key=lambda x: -x[1])[:5])
+    return (f"wall {wall_us:.1f} us, device busy {busy:.1f} us "
+            f"({100 * busy / wall_us:.3f}%): {parts} {card}; largest "
+            f"other: {top}")
+
+
+def kernel_family(name: str) -> str:
+    k = name.lower()
+    if "ssd_chunk" in k:
+        return "ssd"
+    if "flash_kernel" in k:
+        return "flash"
+    if any(w in k for w in ("gemm", "xmma", "cutlass", "nvjet", "cublas",
+                            "sm90_")):
+        return "matmul"
+    if "memcpy" in k or "memset" in k:
+        return "copy"
+    if "elementwise" in k or "vectorized" in k:
+        return "elementwise"
+    if "reduce" in k:
+        return "reduce"
+    if "cat" in k:
+        return "cat"
+    return "other"
+
+
+def model_phase(seed: int, card: str) -> dict:
+    """Phase 5: zamba2-7b at full width and depth on the card, through
+    the port's serving entry points.  Returns the prefill's launches."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import native
+    from repro_torch.models import Transformer, count_params, param_specs
+    from repro_torch.runtime import ServeLoop, SessionRegistry
+
+    cfg = get_config(MODEL_ARCH)
+    n_params = count_params(param_specs(cfg))
+    rng = np.random.default_rng(seed)
+
+    # 5a. f32: the prefill (through the kernels) against a teacher-forced
+    # decode loop over the same tokens (no kernel on that path).
+    cfg32 = replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    model = Transformer(cfg32, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    log(f"{MODEL_ARCH} f32: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters built in {time.perf_counter() - t0:.3f} s; "
+        f"{torch.cuda.memory_allocated()} B allocated {card}")
+    b, s = CHECK_PREFILL
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
+                           device="cuda")
+    native.reset_launches()
+    logits, cache = model.prefill(toks)
+    torch.cuda.synchronize()
+    got = check_prefill_launches(dict(native.LAUNCHES), cfg)
+    dcache = model.init_cache(b, s)
+    with torch.inference_mode():
+        for t in range(s):
+            dl, dcache = model.decode_step(toks[:, t:t + 1], dcache, t)
+    torch.cuda.synchronize()
+    assert all(native.LAUNCHES[k] == v for k, v in got.items()), \
+        f"decode launched a model kernel: {native.LAUNCHES}"
+    errs = {"logits": rel_err(logits, dl)}
+    errs.update({k: rel_err(cache[k], dcache[k]) for k in cache})
+    assert logits.shape == (b, 1, cfg.vocab) and all(
+        torch.isfinite(v).all() for v in (logits, *cache.values())), \
+        "non-finite prefill"
+    bad = {k: e for k, e in errs.items() if not e <= F32_TOL}
+    assert not bad, f"prefill vs decode beyond {F32_TOL}: {bad}"
+    log(f"f32 prefill {b} x {s} launched {json.dumps(got)}; equals the "
+        f"teacher-forced decode within {F32_TOL} (max |diff| / max |.|): "
+        f"{json.dumps(errs)}")
+    del model, logits, cache, dl, dcache
+    free()
+
+    # 5b. bf16, the config's type: a timed prefill, then the serve loop
+    # over four sessions registered in the GLORAN registry on the card.
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    log(f"{MODEL_ARCH} bf16 built in {time.perf_counter() - t0:.3f} s; "
+        f"{torch.cuda.memory_allocated()} B allocated {card}")
+    b, s = SERVE_PREFILL
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
+                           device="cuda")
+    model.prefill(toks[:1, :256])  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = check_prefill_launches(dict(native.LAUNCHES), cfg)
+    assert logits.shape == (b, 1, cfg.vocab)
+    assert torch.isfinite(logits).all() and all(
+        torch.isfinite(v).all() for v in cache.values()), "non-finite"
+    kv = (cfg.n_layers // cfg.hybrid_attn_every, b, s, cfg.n_kv_heads,
+          cfg.head_dim_)
+    assert cache["ak"].shape == kv, cache["ak"].shape
+    log(f"bf16 prefill {b} x {s} tokens in {prefill_s:.6f} s = "
+        f"{b * s / prefill_s:.1f} tokens/s; launched {json.dumps(launches)}; "
+        f"peak memory {torch.cuda.max_memory_allocated()} B {card}")
+    del logits, cache
+    free()
+    log("bf16 prefill time by kernel family: " + time_breakdown(
+        lambda: model.prefill(toks), card))
+    free()
+
+    reg = SessionRegistry(strategy="gloran", device="cuda")
+    sessions = np.arange(b, dtype=np.uint64) + 1000
+    for sid in sessions:
+        reg.register(int(sid), np.arange(8), np.arange(8) + sid)
+    loop = ServeLoop(model, batch=b, max_len=SERVE_PROMPT + SERVE_STEPS,
+                     registry=reg)
+    prompts = rng.integers(0, cfg.vocab, (b, SERVE_PROMPT)).astype(np.int32)
+    native.reset_launches()
+    out = loop.run(prompts, steps=SERVE_STEPS, session_ids=sessions)
+    serve_launches = dict(native.LAUNCHES)
+    st = loop.stats
+    assert out.shape == (b, SERVE_STEPS) and (out >= 0).all() \
+        and (out < cfg.vocab).all(), out
+    assert st.registry_lookups == b * SERVE_STEPS, st
+    found, vals = reg.lookup(sessions, np.zeros(b, np.uint64))
+    assert found.all() and (vals == sessions).all(), (found, vals)
+    steps = SERVE_PROMPT + SERVE_STEPS
+    log(f"ServeLoop: {b} sessions, {SERVE_PROMPT}-token prompts fed by "
+        f"decode, {SERVE_STEPS} steps in {st.wall_seconds:.6f} s = "
+        f"{1e3 * st.wall_seconds / steps:.3f} ms a decode step, "
+        f"{st.tokens_generated / st.wall_seconds:.3f} generated tokens/s; "
+        f"registry lookups {st.registry_lookups}, io reads "
+        f"{st.registry_io_reads}, stall {st.registry_stall_seconds:.6f} s; "
+        f"launches {json.dumps(serve_launches)} {card}")
+    cache = model.init_cache(b, 64)
+    tok = torch.as_tensor(prompts[:, :1], device="cuda")
+    with torch.inference_mode():
+        log("bf16 decode step time by kernel family: " + time_breakdown(
+            lambda: model.decode_step(tok, cache, 0), card))
+    reg.engine.close()
+    del model, cache
+    free()
+    return launches
+
+
+# Kernel against plain version.  SSD: f32 sums in another order, within
+# SSD_TOL of the output's largest magnitude.  Flash in bf16: both sides
+# sum in f32 and round once to bf16, so an element may differ by one
+# bf16 ulp, at most 2^-7 of its magnitude; 2^-12 covers outputs near 0.
+SSD_TOL = 1e-4
+FLASH_BF16_TOL = (2 ** -12, 2 ** -7)  # (atol, rtol), elementwise
+FLASH_F32_TOL = 1e-4  # max abs
+SSD_SWEEP = [  # (b, s, h, p, n, chunk)
+    (1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 64, 128),
+    (2, 256, 3, 64, 128, 128), (4, 2048, 112, 64, 64, 128)]
+FLASH_SWEEP = [  # (b, sq, skv, hq, hkv, d, causal, window)
+    (1, 128, 128, 4, 4, 64, True, None), (2, 256, 256, 8, 2, 64, True, None),
+    (1, 128, 128, 4, 1, 128, True, 64), (2, 100, 100, 4, 2, 64, True, None),
+    (1, 64, 320, 4, 2, 64, True, None), (1, 128, 128, 4, 4, 64, False, None),
+    (2, 96, 96, 4, 4, 112, True, None), (1, 130, 130, 4, 2, 112, True, 48),
+    (1, 40, 40, 2, 2, 256, True, None), (1, 33, 33, 2, 1, 20, False, 7),
+    (1, 8, 5, 2, 2, 16, True, None), (4, 2048, 2048, 32, 32, 112, True, None)]
+
+
+def ssd_inputs(b, s, h, p, n, q, dtype, g):
+    """x, dac, dt, B, C as a Mamba2 layer hands them to the SSD kernel:
+    dt in [1e-3, 0.101], A in -[1, 16], dac the per-chunk cumsum."""
+    x = torch.randn(b, s, h, p, device="cuda", generator=g).to(dtype)
+    Bm, Cm = (torch.randn(b, s, n, device="cuda", generator=g).to(dtype)
+              for _ in range(2))
+    dt = torch.rand(b, s, h, device="cuda", generator=g) * 0.1 + 1e-3
+    A = -(torch.rand(h, device="cuda", generator=g) * 15 + 1)
+    dac = torch.cumsum((dt * A).reshape(b, s // q, q, h), 2).reshape(b, s, h)
+    return x, dac, dt, Bm, Cm
+
+
+def model_kernel_checks(launches: dict, seed: int, card: str) -> list:
+    """Phase 6: the SSD and flash kernels against their plain versions
+    at the shapes the bf16 prefill gives them, then over a sweep of
+    other shapes in f32 and bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.ssd import ssd_chunks, ssd_chunks_ref
+
+    cfg = get_config(MODEL_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bf = torch.bfloat16
+    b, s = SERVE_PREFILL
+    h = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+    p, n, q = cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.chunk
+    x, dac, dt, Bm, Cm = ssd_inputs(b, s, h, p, n, q, bf, g)
+    cells = b * h * (s // q)
+    tri = q * (q + 1) // 2
+    ssd_bytes = (2 * x.numel() + 4 * 2 * dt.numel() + 2 * 2 * Bm.numel()
+                 + 4 * x.numel() + 4 * cells * n * p)
+    ssd_ops = cells * (2 * tri * n + 2 * tri * p + 2 * q * n * p)
+    want = ssd_chunks_ref(x, dac, dt, Bm, Cm, chunk=q)
+    scale = float(max(want[0].abs().max(), want[1].abs().max()))
+    records = [check_kernel(
+        "ssd", launches["ssd"],
+        lambda: ssd_chunks(x, dac, dt, Bm, Cm, chunk=q),
+        lambda: ssd_chunks_ref(x, dac, dt, Bm, Cm, chunk=q), ssd_bytes,
+        card, ops=ssd_ops, tol=SSD_TOL * scale)]
+    del x, Bm, Cm, dt, dac, want
+    free()
+
+    hq, d = cfg.n_heads, cfg.head_dim_
+    qq, kk, vv = (torch.randn(b, s, hq, d, device="cuda", generator=g)
+                  .to(bf) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qq, kk, vv))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flash_bytes = 2 * 4 * qq.numel()
+    flash_ops = 4 * d * b * hq * (s * (s + 1) // 2)
+    records.append(check_kernel(
+        "flash_attention", launches["flash_attention"],
+        lambda: flash_attention(qq, kk, vv, causal=True),
+        lambda: attention_ref(qq, kk, vv, causal=True), flash_bytes, card,
+        ops=flash_ops, tol=FLASH_BF16_TOL[0], rtol=FLASH_BF16_TOL[1],
+        library=lambda: sdpa(qt, kt, vt, is_causal=True)))
+    # The tolerance must reject a plausible wrong kernel: the kernel
+    # itself with the softmax scale of D padded to a power of two.
+    padded = 1 << (d - 1).bit_length()
+    want = attention_ref(qq, kk, vv, causal=True)
+    wrong = flash_attention(qq, kk, vv, causal=True, scale=padded ** -0.5)
+    atol, rtol = FLASH_BF16_TOL
+    used = allowance_used(wrong, want, atol, rtol)
+    outside = float(((wrong.float() - want.float()).abs()
+                     > atol + rtol * want.float().abs()).float().mean())
+    assert padded != d and used > 1, \
+        f"flash tolerance passes the scale of D = {padded} ({used})"
+    log(f"flash_attention with the scale of D = {padded}: max abs err "
+        f"{max_abs_err(wrong, want)}, {used} of the tolerance used, "
+        f"{100 * outside:.3f}% of elements outside it: rejected")
+    del qq, kk, vv, qt, kt, vt, want, wrong
+    free()
+    kernel_sweep(g)
+    return records
+
+
+def kernel_sweep(g) -> None:
+    """Both model kernels against their plain versions over
+    ``SSD_SWEEP`` and ``FLASH_SWEEP`` in f32 and bf16 (head dims 16 to
+    256, GQA, windows, more keys than queries, non-causal); fails after
+    logging every case if any is out of tolerance."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.ssd import ssd_chunks, ssd_chunks_ref
+
+    fails = []
+    for shape in SSD_SWEEP:
+        q = shape[-1]
+        for dtype in (torch.float32, torch.bfloat16):
+            args = ssd_inputs(*shape, dtype, g)
+            got = ssd_chunks(*args, chunk=q)
+            torch.cuda.synchronize()
+            want = ssd_chunks_ref(*args, chunk=q)
+            used = max(allowance_used(a, w, SSD_TOL * float(w.abs().max()))
+                       for a, w in zip(got, want))
+            ok = used <= 1 and all(torch.isfinite(a).all() for a in got)
+            if not ok:
+                fails.append(("ssd", shape, dtype))
+            log(f"ssd {shape} {dtype}: max abs err {max_abs_err(got, want)}, "
+                f"{used} of the tolerance used")
+    for shape in FLASH_SWEEP:
+        b, sq, skv, hq, hkv, d, causal, window = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            qq = torch.randn(b, sq, hq, d, device="cuda", generator=g)
+            kk, vv = (torch.randn(b, skv, hkv, d, device="cuda", generator=g)
+                      for _ in range(2))
+            qq, kk, vv = (t.to(dtype) for t in (qq, kk, vv))
+            got = flash_attention(qq, kk, vv, causal=causal, window=window)
+            torch.cuda.synchronize()
+            want = attention_ref(qq, kk, vv, causal=causal, window=window)
+            tol = ((FLASH_F32_TOL, 0.0) if dtype == torch.float32
+                   else FLASH_BF16_TOL)
+            used = allowance_used(got, want, *tol)
+            ok = used <= 1 and got.dtype == dtype \
+                and bool(torch.isfinite(got).all())
+            if not ok:
+                fails.append(("flash", shape, dtype))
+            log(f"flash {shape} {dtype}: max abs err "
+                f"{max_abs_err(got, want)}, {used} of the tolerance used")
+    free()
+    assert not fails, f"kernels differ from their plain versions: {fails}"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    # Full f32 in matmuls and convolutions: the checks compare in f32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import native
+
+    # 1. environment + build
+    smi, kind = environment()
+    card = f"[{smi}]"
+    t0 = time.perf_counter()
+    native.build_all()
+    log(f"kernel build {time.perf_counter() - t0:.3f} s "
+        f"({len(native.KERNELS)} sources)")
+
+    records = store_phases(card)
+    launches = model_phase(args.seed, card)
+    records += model_kernel_checks(launches, args.seed, card)
+    log(smi)
+    log(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ numpy arrays.
 A test, or a migration, that holds an SSTable, a DR-tree level or a
 Bloom filter of the JAX package as arrays rebuilds the same object
 here, so that both packages can be fed identical state.  The cascade's
-packed state has its own constructor, ``CascadeState.from_numpy``.
+packed state has its own constructor, ``CascadeState.from_numpy``, and
+a model's parameters load with ``load_jax_params``.
 """
 
 from __future__ import annotations
@@ -44,3 +45,37 @@ def bloom_from_arrays(words, m_bits: int, seeds) -> BloomBits:
     bb.words = np.array(words, np.uint32)
     bb.seeds = seeds.copy()
     return bb
+
+
+def _index(tree, i):
+    """Slice ``i`` of every array of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _unstack(tree, *lead: int) -> list:
+    """Nested lists (one level per leading axis) of a dict of stacked
+    arrays."""
+    if not lead:
+        return tree
+    return [_unstack(_index(tree, i), *lead[1:]) for i in range(lead[0])]
+
+
+def load_jax_params(model, tree) -> None:
+    """Fill a ``repro_torch.models.Transformer`` with the JAX package's
+    param tree for the same config, given as numpy arrays: the stacked
+    ``layers`` (L, ...), ``groups`` (G, per, ...) and ``tail`` (T, ...)
+    are unstacked into the port's per-layer modules, and every array is
+    cast to the model's type on its device."""
+    out = {k: tree[k] for k in ("embed", "final_norm", "lm_head",
+                                "shared_attn", "shared_mlp") if k in tree}
+    if "layers" in tree:
+        out["layers"] = _unstack(tree["layers"], model.cfg.n_layers)
+    if "groups" in tree:
+        mamba = tree["groups"]["mamba"]
+        out["groups"] = _unstack(mamba, *mamba["ln"].shape[:2])
+    if "tail" in tree:
+        mamba = tree["tail"]["mamba"]
+        out["tail"] = _unstack(mamba, mamba["ln"].shape[0])
+    model.load_params(out)

@@ -29,7 +29,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("cascade", "merge_rank", "bloom", "interval")
+KERNELS = ("cascade", "merge_rank", "bloom", "interval", "ssd",
+           "flash_attention")
+INTS = (torch.int32, torch.uint32)
+FLOATS = (torch.float32, torch.bfloat16)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -133,17 +136,19 @@ def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
-    """Check that every operand is a contiguous 32-bit tensor on one
-    CUDA device; return that device."""
+def require_cuda(name: str, *tensors: torch.Tensor,
+                 dtypes=INTS) -> torch.device:
+    """Check that every operand is a contiguous tensor of one of
+    ``dtypes`` (by default the 32-bit ints) on one CUDA device; return
+    that device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: operands on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-        if t.dtype not in (torch.int32, torch.uint32):
-            raise TypeError(f"{name}: 32-bit operands expected, "
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: operands of {dtypes} expected, "
                             f"got {t.dtype}")
     if dev.type != "cuda":
         raise ValueError(f"{name}: kernel needs CUDA tensors, got {dev}")

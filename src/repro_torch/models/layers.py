@@ -1,0 +1,47 @@
+"""Shared neural layers: RMSNorm, rotary embeddings, SwiGLU MLP.
+
+Norms and activations compute in f32 and cast back to the input's type,
+as ``repro.models.layers`` does.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rmsnorm(x, w, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+def rope(x, positions, *, base: float = 10000.0, fraction: float = 1.0):
+    """Rotary embedding on the leading ``fraction`` of head dims.
+
+    x: (B, S, H, D); positions: (B, S) int.  chatglm3 uses fraction=0.5
+    (2-d RoPE on half the dims); others use 1.0.
+    """
+    d = x.shape[-1]
+    d_rot = int(d * fraction)
+    d_rot -= d_rot % 2
+    if d_rot == 0:
+        return x
+    xr, xp = x[..., :d_rot], x[..., d_rot:]
+    half = d_rot // 2
+    freqs = base ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[:, :, None].float() * freqs[None, None, :]
+    cos = torch.cos(ang)[:, :, None, :]  # (B,S,1,half)
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = xr[..., :half].float(), xr[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    g = x @ w_gate
+    u = x @ w_up
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ w_down

@@ -1,0 +1,383 @@
+"""Model assembly: dense / SSM / hybrid decoder stacks as torch modules.
+
+The JAX package scans over stacked layer parameters; here every layer
+has its own modules (``nn.ModuleList``s), and the heterogeneous stacks
+are Python loops: gemma3's 5:1 local:global pattern is a per-layer
+window int, zamba2's shared attention+MLP block runs after each group
+of Mamba2 layers.  ``vlm`` and ``audio`` are dense stacks behind a stub
+frontend that takes embeddings.  MoE stacks are not ported yet.
+
+Parameters live in ``Transformer.params``, a tree of modules indexed
+like the JAX package's param dicts (``params["groups"][g][j]["w_in"]``),
+drawn from ``init_params`` with a seed on the model's device, or loaded
+from the JAX package's arrays by ``repro_torch.carry.load_jax_params``.
+
+Entry points (no gradients; training is not ported):
+  forward_train(tokens|embeds)          -> logits
+  prefill(tokens|embeds)                -> (logits, cache)
+  decode_step(token, cache, pos)        -> (logits, cache), in place
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from .attention import attention_block
+from .layers import rmsnorm, swiglu
+from .params import ParamSpec, init_params
+from .ssm import mamba2_block
+
+P = ParamSpec
+_MOE = "Queue A item 11 (model stack: moe.py)"
+_DENSE = ("dense", "vlm", "audio")
+
+
+def _module(value):
+    if isinstance(value, dict):
+        return ParamTree(value)
+    return nn.ModuleList(_module(v) for v in value)
+
+
+class ParamTree(nn.Module):
+    """A nested dict of parameters: tensors become (frozen) parameters,
+    dicts ``ParamTree``s and lists ``nn.ModuleList``s; indexed by key
+    like the JAX package's param dicts."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, torch.Tensor):
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+            else:
+                self.add_module(name, _module(value))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def _attn_specs(c: ModelConfig) -> dict:
+    hd = c.head_dim_
+    return {
+        "ln": P((c.d_model,), ("embed",), "ones"),
+        "wq": P((c.d_model, c.n_heads, hd),
+                ("embed_fsdp", "q_heads", "head_dim")),
+        "wk": P((c.d_model, c.n_kv_heads, hd),
+                ("embed_fsdp", "kv_heads", "head_dim")),
+        "wv": P((c.d_model, c.n_kv_heads, hd),
+                ("embed_fsdp", "kv_heads", "head_dim")),
+        "wo": P((c.n_heads, hd, c.d_model),
+                ("q_heads", "head_dim", "embed_fsdp")),
+    }
+
+
+def _mlp_specs(c: ModelConfig) -> dict:
+    return {
+        "ln": P((c.d_model,), ("embed",), "ones"),
+        "w_gate": P((c.d_model, c.d_ff), ("embed_fsdp", "mlp")),
+        "w_up": P((c.d_model, c.d_ff), ("embed_fsdp", "mlp")),
+        "w_down": P((c.d_ff, c.d_model), ("mlp", "embed_fsdp")),
+    }
+
+
+def _mamba_specs(c: ModelConfig) -> dict:
+    di = c.ssm.expand * c.d_model
+    n = c.ssm.d_state
+    nh = di // c.ssm.head_dim
+    return {
+        "ln": P((c.d_model,), ("embed",), "ones"),
+        "w_in": P((c.d_model, 2 * di), ("embed_fsdp", "mlp")),
+        "w_bc": P((c.d_model, 2 * n), ("embed_fsdp", None)),
+        "w_dt": P((c.d_model, nh), ("embed_fsdp", "ssm_heads")),
+        "dt_bias": P((nh,), ("ssm_heads",), "dt_bias"),
+        "a_log": P((nh,), ("ssm_heads",), "a_log"),
+        "d_skip": P((nh,), ("ssm_heads",), "ones"),
+        "conv_w": P((c.ssm.conv_width, di), ("conv", "mlp")),
+        "out_norm": P((di,), ("mlp",), "ones"),
+        "w_out": P((di, c.d_model), ("mlp", "embed_fsdp")),
+    }
+
+
+def _hybrid_split(c: ModelConfig) -> tuple[int, int, int]:
+    """(groups, layers a group, tail layers) of a hybrid stack."""
+    per = c.hybrid_attn_every or 6
+    n_groups, tail = divmod(c.n_layers, per)
+    return n_groups, per, tail
+
+
+def param_specs(c: ModelConfig) -> dict:
+    """The spec tree of a config: the JAX package's, with each stacked
+    layer axis unrolled into a list.  Allocates nothing."""
+    specs: dict = {
+        "final_norm": P((c.d_model,), ("embed",), "ones"),
+        "lm_head": P((c.d_model, c.vocab), ("embed_fsdp", "vocab")),
+    }
+    if c.stub_frontend is None:
+        specs["embed"] = P((c.vocab, c.d_model), ("vocab", "embed"),
+                           "normal", 1.0)
+    if c.family in _DENSE:
+        specs["layers"] = [{"attn": _attn_specs(c), "mlp": _mlp_specs(c)}
+                           for _ in range(c.n_layers)]
+    elif c.family == "ssm":
+        specs["layers"] = [{"mamba": _mamba_specs(c)}
+                           for _ in range(c.n_layers)]
+    else:  # hybrid
+        n_groups, per, tail = _hybrid_split(c)
+        specs["groups"] = [[_mamba_specs(c) for _ in range(per)]
+                           for _ in range(n_groups)]
+        if tail:
+            specs["tail"] = [_mamba_specs(c) for _ in range(tail)]
+        specs["shared_attn"] = _attn_specs(c)
+        specs["shared_mlp"] = _mlp_specs(c)
+    return specs
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device: str = "cuda",
+                 seed: int = 0):
+        super().__init__()
+        if cfg.moe is not None or cfg.family == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: MoE stacks are not ported to repro_torch "
+                f"yet: ROADMAP {_MOE}")
+        if cfg.family not in _DENSE + ("ssm", "hybrid"):
+            raise ValueError(cfg.family)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, cfg.dtype)
+        # Static window for banded local attention (prefill): uniform-SWA
+        # archs use cfg.window; local:global stacks the local window
+        # (global layers take the full path).
+        self._static_window = (cfg.local_window if cfg.local_global
+                               else cfg.window)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.params = ParamTree(init_params(param_specs(cfg), gen,
+                                            self.dtype, self.device))
+
+    @torch.no_grad()
+    def load_params(self, tree) -> None:
+        """Copy a tree of the spec tree's structure (tensors or numpy
+        arrays) into the parameters; shapes must match."""
+        self._load(tree, self.params)
+
+    def _load(self, tree, params) -> None:
+        keys = tree.keys() if isinstance(tree, dict) else range(len(tree))
+        if isinstance(tree, list) and len(tree) != len(params):
+            raise ValueError(f"{len(tree)} layers given for "
+                             f"{len(params)}")
+        for k in keys:
+            src, dst = tree[k], params[k]
+            if isinstance(dst, torch.Tensor):
+                if not isinstance(src, torch.Tensor):
+                    src = torch.from_numpy(np.array(src))
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"{k}: shape {tuple(src.shape)} for "
+                                     f"{tuple(dst.shape)}")
+                dst.copy_(src.to(dst.dtype))
+            else:
+                self._load(src, dst)
+
+    # ----------------------------------------------------------- helpers
+    def _window_vector(self) -> list[int]:
+        """Per-layer attention window (-1 = full)."""
+        c = self.cfg
+        if c.local_global is not None:
+            per = c.local_global + 1  # N local then 1 global
+            return [(c.local_window or 1024) if (i % per) != c.local_global
+                    else -1 for i in range(c.n_layers)]
+        return [c.window if c.window is not None else -1] * c.n_layers
+
+    def _attention(self, x, ap, window, positions, cache=None,
+                   cache_pos=None, ring=False, static_local_window=None):
+        return attention_block(
+            rmsnorm(x, ap["ln"], self.cfg.norm_eps), ap["wq"], ap["wk"],
+            ap["wv"], ap["wo"], positions=positions, window=window,
+            rope_fraction=self.cfg.rope_fraction, cache=cache,
+            cache_pos=cache_pos, ring=ring,
+            static_local_window=static_local_window)
+
+    def _mlp(self, x, mp):
+        return x + swiglu(rmsnorm(x, mp["ln"], self.cfg.norm_eps),
+                          mp["w_gate"], mp["w_up"], mp["w_down"])
+
+    def _block_dense(self, x, lp, window, positions, cache=None,
+                     cache_pos=None, ring=False):
+        h, new_kv = self._attention(x, lp["attn"], window, positions, cache,
+                                    cache_pos, ring, self._static_window)
+        return self._mlp(x + h, lp["mlp"]), new_kv
+
+    def _block_mamba(self, x, lp, state=None, return_state=False):
+        y, new_state = mamba2_block(rmsnorm(x, lp["ln"], self.cfg.norm_eps),
+                                    lp, self.cfg, state=state,
+                                    return_state=return_state)
+        return x + y, new_state
+
+    def _shared(self, x, positions, cache=None, cache_pos=None, ring=False):
+        """zamba2's shared attention + MLP block."""
+        c = self.cfg
+        out, kv = self._attention(x, self.params["shared_attn"],
+                                  c.window if c.window else -1, positions,
+                                  cache, cache_pos, ring)
+        return self._mlp(x + out, self.params["shared_mlp"]), kv
+
+    def _embed_in(self, tokens, embeds):
+        c = self.cfg
+        if c.stub_frontend is not None:
+            assert embeds is not None, "stub frontend takes embeddings"
+            return embeds.to(device=self.device, dtype=self.dtype)
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        x = self.params["embed"][tokens].to(self.dtype)
+        # The scale rounds to the model's type first, as in JAX.
+        return x * float(torch.tensor(c.d_model ** 0.5, dtype=self.dtype))
+
+    def _head_out(self, x):
+        x = rmsnorm(x, self.params["final_norm"], self.cfg.norm_eps)
+        return x @ self.params["lm_head"]
+
+    def _positions(self, b: int, s: int, start: int = 0):
+        return (torch.arange(s, dtype=torch.int32, device=self.device)
+                + start)[None].expand(b, s)
+
+    # ----------------------------------------------------- forward paths
+    @torch.no_grad()
+    def forward_train(self, tokens=None, embeds=None):
+        """Teacher-forced forward -> logits (B, S, V)."""
+        x = self._embed_in(tokens, embeds)
+        x, _ = self._stack(x, keep_cache=False)
+        return self._head_out(x)
+
+    @torch.no_grad()
+    def prefill(self, tokens=None, embeds=None):
+        """Forward + a KV/state cache sized to the input length; returns
+        (last-position logits (B, 1, V), cache)."""
+        x = self._embed_in(tokens, embeds)
+        x, cache = self._stack(x, keep_cache=True)
+        return self._head_out(x[:, -1:]), cache
+
+    def _stack(self, x, keep_cache: bool):
+        """Run every layer over the whole sequence; with ``keep_cache``
+        also return the cache (the JAX package's stacked layout)."""
+        c = self.cfg
+        p = self.params
+        b, s, _ = x.shape
+        positions = self._positions(b, s)
+        if c.family in _DENSE:
+            ks, vs = [], []
+            for lp, w in zip(p["layers"], self._window_vector()):
+                x, (k, v) = self._block_dense(x, lp, w, positions)
+                if keep_cache:
+                    ks.append(k)
+                    vs.append(v)
+            return x, ({"k": torch.stack(ks), "v": torch.stack(vs)}
+                       if keep_cache else None)
+        if c.family == "ssm":
+            x, hs, convs = self._mamba_run(x, [lp["mamba"]
+                                               for lp in p["layers"]],
+                                           keep_cache)
+            return x, ({"h": hs, "conv": convs} if keep_cache else None)
+        cache: dict = {"gh": [], "gconv": [], "ak": [], "av": []}
+        for group in p["groups"]:
+            x, hs, convs = self._mamba_run(x, group, keep_cache)
+            x, (k, v) = self._shared(x, positions)
+            if keep_cache:
+                for key, val in zip(("gh", "gconv", "ak", "av"),
+                                    (hs, convs, k, v)):
+                    cache[key].append(val)
+        cache = {k: torch.stack(v) for k, v in cache.items()} \
+            if keep_cache else None
+        if "tail" in p:
+            x, hs, convs = self._mamba_run(x, p["tail"], keep_cache)
+            if keep_cache:
+                cache["th"], cache["tconv"] = hs, convs
+        return x, cache
+
+    def _mamba_run(self, x, layers, keep_cache: bool):
+        hs, convs = [], []
+        for lp in layers:
+            x, st = self._block_mamba(x, lp, return_state=keep_cache)
+            if keep_cache:
+                hs.append(st["h"])
+                convs.append(st["conv"])
+        if not keep_cache:
+            return x, None, None
+        return x, torch.stack(hs), torch.stack(convs)
+
+    # ------------------------------------------------------------- serve
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
+        """Zeroed decode cache on the model's device, in the JAX
+        package's layout."""
+        c = self.cfg
+        dtype = dtype or self.dtype
+        hd = c.head_dim_
+
+        def zeros(shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
+        if c.family in _DENSE:
+            shape = (c.n_layers, batch, max_len, c.n_kv_heads, hd)
+            return {"k": zeros(shape), "v": zeros(shape)}
+        di = c.ssm.expand * c.d_model
+        nh = di // c.ssm.head_dim
+        h = (batch, nh, c.ssm.d_state, c.ssm.head_dim)
+        conv = (batch, c.ssm.conv_width - 1, di)
+        if c.family == "ssm":
+            return {"h": zeros((c.n_layers,) + h, torch.float32),
+                    "conv": zeros((c.n_layers,) + conv)}
+        n_groups, per, tail = _hybrid_split(c)
+        kv = (n_groups, batch, max_len, c.n_kv_heads, hd)
+        cache = {"gh": zeros((n_groups, per) + h, torch.float32),
+                 "gconv": zeros((n_groups, per) + conv),
+                 "ak": zeros(kv), "av": zeros(kv)}
+        if tail:
+            cache["th"] = zeros((tail,) + h, torch.float32)
+            cache["tconv"] = zeros((tail,) + conv)
+        return cache
+
+    @torch.no_grad()
+    def decode_step(self, token, cache: dict, pos: int, ring: bool = False):
+        """One decode step. token: (B, 1) int (or (B, 1, D) embeds for
+        stub frontends); pos: the current position.  Updates ``cache``
+        in place (it holds max_len positions for every layer, so a copy
+        per step would double it) and returns (logits (B, 1, V),
+        cache).  ``ring=True`` treats attention caches as circular window
+        buffers (sliding-window long decode)."""
+        c = self.cfg
+        p = self.params
+        if c.stub_frontend is not None:
+            x = self._embed_in(None, token)
+        else:
+            x = self._embed_in(token, None)
+        positions = self._positions(x.shape[0], 1, pos)
+        if c.family in _DENSE:
+            for i, (lp, w) in enumerate(zip(p["layers"],
+                                            self._window_vector())):
+                x, _ = self._block_dense(
+                    x, lp, w, positions,
+                    {"k": cache["k"][i], "v": cache["v"][i]}, pos, ring)
+            return self._head_out(x), cache
+        if c.family == "ssm":
+            x = self._mamba_step(x, [lp["mamba"] for lp in p["layers"]],
+                                 cache["h"], cache["conv"])
+            return self._head_out(x), cache
+        for g, group in enumerate(p["groups"]):
+            x = self._mamba_step(x, group, cache["gh"][g], cache["gconv"][g])
+            x, _ = self._shared(x, positions,
+                                {"k": cache["ak"][g], "v": cache["av"][g]},
+                                pos, ring)
+        if "tail" in p:
+            x = self._mamba_step(x, p["tail"], cache["th"], cache["tconv"])
+        return self._head_out(x), cache
+
+    def _mamba_step(self, x, layers, hs, convs):
+        for i, lp in enumerate(layers):
+            x, st = self._block_mamba(x, lp, {"h": hs[i], "conv": convs[i]})
+            hs[i].copy_(st["h"])
+            convs[i].copy_(st["conv"])
+        return x

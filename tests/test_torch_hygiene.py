@@ -103,3 +103,107 @@ def test_kernel_wrapper_refuses_cpu_operands_and_missing_nvcc(monkeypatch):
     monkeypatch.setattr(native, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         native.library("bloom")
+
+
+# ------------------------------------------------ the model stack's slice
+SLICE_MODULES = ("repro_torch.configs", "repro_torch.models",
+                 "repro_torch.kernels.ssd", "repro_torch.kernels.flash_attention",
+                 "repro_torch.runtime", "repro_torch.launch.serve",
+                 "repro_torch.carry")
+
+
+def test_model_stack_modules_load_neither_jax_nor_repro():
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "assert 'repro_torch.models.model' in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro")
+                       for n in names), names
+
+
+def _model_kernel_operands():
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    x = torch.zeros(1, 16, 2, 8)
+    dt = torch.zeros(1, 16, 2)
+    bc = torch.zeros(1, 16, 4)
+    q = torch.zeros(1, 16, 2, 8)
+    return ((lambda: ssd_ops._launch(x, dt, dt, bc, bc, 16)),
+            (lambda: flash_ops._launch(q, q, q, None, True, None)))
+
+
+@pytest.mark.parametrize("which", ["ssd", "flash_attention"])
+def test_model_kernels_refuse_cpu_launch(which):
+    """The launch path never runs on CPU tensors (no silent fallback):
+    the wrapper sends a CPU tensor to the plain version before it."""
+    launch = dict(zip(("ssd", "flash_attention"),
+                      _model_kernel_operands()))[which]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        launch()
+
+
+def test_float_operand_check():
+    f = torch.zeros(4)
+    with pytest.raises(TypeError, match="expected"):
+        native.require_cuda("ssd", f.to(torch.float64),
+                            dtypes=native.FLOATS)
+    with pytest.raises(TypeError, match="expected"):
+        native.require_cuda("bloom", f)  # the int kernels take no floats
+    with pytest.raises(ValueError, match="contiguous"):
+        native.require_cuda("ssd", torch.zeros(4, 4).t(),
+                            dtypes=native.FLOATS)
+    assert {"ssd", "flash_attention"} <= set(native.KERNELS)
+    assert {"ssd", "flash_attention"} <= set(native.LAUNCHES)
+
+
+def test_model_kernels_build_from_csrc(monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(ROOT / "no-such-toolkit"))
+    monkeypatch.setattr(native, "_libs", {})
+    for name in ("ssd", "flash_attention"):
+        assert (native.CSRC / f"{name}.cu").exists()
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            native.library(name)
+
+
+def test_model_and_cli_want_the_card():
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import Transformer
+    from repro_torch.runtime import SessionRegistry
+    cfg = smoke(get_config("zamba2-7b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Transformer(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Transformer(cfg)  # the default device is the card
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SessionRegistry()
+    # The full-width model is never built: the device check comes first.
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "zamba2-7b"])
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "kimi-k2-1t-a32b"])
+def test_moe_configs_raise_naming_roadmap(arch):
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.models import Transformer
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Transformer(smoke(get_config(arch)), device="cpu")
