@@ -7,7 +7,7 @@ and this checkout; without them it exits non-zero before printing any
 result.  Phases, each of which fails the run on any error:
 
 1. Environment: the card's name and power limit, torch and CUDA
-   versions, and the seconds the six kernels took to build (one nvcc
+   versions, and the seconds the eight kernels took to build (one nvcc
    per source, all started together).
 2. The store's slice: an 8-shard hash-partitioned GLORAN
    ``Engine`` on ``cuda`` with the paper's default ``LSMConfig`` loads
@@ -32,24 +32,34 @@ result.  Phases, each of which fails the run on any error:
    yardstick.
 5. The model stack's slice: zamba2-7b at full width and depth (81
    layers, d_model 3584, random weights from ``--seed``).  In f32, a
-   prefill of 2 x 128 tokens must launch the SSD kernel 81 times and
-   the flash kernel 13 times, and its last logits and every cache entry
-   must equal a teacher-forced ``decode_step`` loop over the same tokens
-   (no kernel on that path) within 1e-3 of the decode side's largest
-   magnitude.  In bf16 (the config's type), a timed prefill of 4 x 2048
-   tokens (launches counted again), its time by kernel family, then
-   ``ServeLoop`` over 4 sessions registered in a ``SessionRegistry`` on
-   ``cuda`` for 16 steps: decode ms a step and tokens/s.
-6. The SSD and flash kernels against their plain versions at the bf16
+   prefill of 2 x 128 tokens must launch the CUDA-core SSD kernel 81
+   times and the CUDA-core flash kernel 13 times (and the tensor-core
+   ones never), and its last logits and every cache entry must equal a
+   teacher-forced ``decode_step`` loop over the same tokens (no kernel
+   on that path) within 1e-3 of the decode side's largest magnitude.
+   In bf16 (the config's type), after a warm-up, three timed prefills
+   of 4 x 2048 tokens (the median reported) must each launch the
+   tensor-core kernels ``ssd_sm90`` 81 times and
+   ``flash_attention_sm90`` 13 times (and the CUDA-core ones never);
+   then one prefill's time by kernel family, and ``ServeLoop`` over 4 sessions
+   registered in a ``SessionRegistry`` on ``cuda`` for 16 steps: decode
+   ms a step and tokens/s.
+6. The four model kernels against their plain versions at the bf16
    prefill's shapes (SSD: 4 x 112 heads, chunks of 128, p = n = 64;
-   flash: 4 x 2048, 32 heads of 112), the SSD kernel within 1e-4 of the
-   output's largest magnitude (f32 sums in another order), each element
-   of the flash kernel's bf16 output within 2^-7 of its magnitude +
-   2^-12 (one bf16 ulp), with their times, bounds and, for flash,
-   ``scaled_dot_product_attention`` as a yardstick.  The flash kernel
-   run with the softmax scale of D = 128 must fail that tolerance.
-   Then both kernels over a sweep of other shapes in f32 and bf16 (flash
-   in f32 within 1e-4).
+   flash: 4 x 2048, 32 heads of 112): the tensor-core kernels through
+   the public wrappers, the CUDA-core kernels on the same bf16 inputs
+   through their private launch functions.  The SSD kernels within
+   1e-4 of the output's largest magnitude (f32 sums in another order),
+   each element of the flash kernels' bf16 output within 2^-7 of its
+   magnitude + 2^-12 (one bf16 ulp), with their times, bounds and, for
+   flash, ``scaled_dot_product_attention`` as a yardstick, whose share
+   of the flash tolerance is logged too (a reading, not a check).  Two
+   planted faults must fail those tolerances: the tensor-core flash
+   kernel run with the softmax scale of D = 128, and the tensor-core
+   SSD kernel with the diagonal u == t left out of its mask.  Then all
+   four kernels over a sweep of other shapes in f32 and bf16 (flash in
+   f32 within 1e-4), each case logging the kernel that its dtype and
+   shape choose.
 
 The line before the last is the kernels' JSON record, the one before
 it the card's name and power limit; the last line is
@@ -96,6 +106,10 @@ KERNEL_SOURCES = {
             "src/repro/kernels/ssd/kernel.py:49"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:82"),
+    "ssd_sm90": ("src/repro_torch/csrc/ssd_sm90.cu",
+                 "src/repro/kernels/ssd/kernel.py:49"),
+    "flash_attention_sm90": ("src/repro_torch/csrc/flash_attention_sm90.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:82"),
 }
 
 
@@ -569,6 +583,7 @@ MODEL_ARCH = "zamba2-7b"
 CHECK_PREFILL = (2, 128)  # f32 prefill held to teacher-forced decode
 SERVE_PREFILL = (4, 2048)  # bf16; prefill_32k's 32 x 32768 is cut
 SERVE_PROMPT, SERVE_STEPS = 8, 16
+PREFILL_RUNS = 3  # timed bf16 prefills; the median is reported
 F32_TOL = 1e-3  # max |prefill - decode| over the decode side's max |.|
 
 
@@ -582,11 +597,16 @@ def free() -> None:
     torch.cuda.empty_cache()
 
 
-def check_prefill_launches(launches: dict, cfg) -> dict:
-    """A zamba2 prefill launches the SSD kernel once a Mamba2 layer and
-    the flash kernel once a shared-attention application."""
-    want = {"ssd": cfg.n_layers,
-            "flash_attention": cfg.n_layers // cfg.hybrid_attn_every}
+def check_prefill_launches(launches: dict, cfg, variant: str = "") -> dict:
+    """A zamba2 prefill launches an SSD kernel once a Mamba2 layer and a
+    flash kernel once a shared-attention application: in f32 the
+    CUDA-core kernels (``variant`` ""), in bf16 the tensor-core ones
+    ("_sm90"), and never the other pair."""
+    other = "_sm90" if not variant else ""
+    want = {"ssd" + variant: cfg.n_layers,
+            "flash_attention" + variant:
+                cfg.n_layers // cfg.hybrid_attn_every,
+            "ssd" + other: 0, "flash_attention" + other: 0}
     got = {k: launches[k] for k in want}
     assert got == want, (got, want)
     return got
@@ -628,6 +648,10 @@ def time_breakdown(fn, card: str) -> str:
 
 def kernel_family(name: str) -> str:
     k = name.lower()
+    if "ssd_sm90" in k:
+        return "ssd_sm90"
+    if "flash_sm90" in k:
+        return "flash_sm90"
     if "ssd_chunk" in k:
         return "ssd"
     if "flash_kernel" in k:
@@ -705,25 +729,33 @@ def model_phase(seed: int, card: str) -> dict:
     b, s = SERVE_PREFILL
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
                            device="cuda")
-    model.prefill(toks[:1, :256])  # warm-up, not counted
+    # A full-size warm-up (not counted) grows the allocator's cache, so
+    # the timed runs measure the prefill and not cudaMalloc.
+    model.prefill(toks)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    native.reset_launches()
-    t0 = time.perf_counter()
-    logits, cache = model.prefill(toks)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    launches = check_prefill_launches(dict(native.LAUNCHES), cfg)
-    assert logits.shape == (b, 1, cfg.vocab)
-    assert torch.isfinite(logits).all() and all(
-        torch.isfinite(v).all() for v in cache.values()), "non-finite"
-    kv = (cfg.n_layers // cfg.hybrid_attn_every, b, s, cfg.n_kv_heads,
-          cfg.head_dim_)
-    assert cache["ak"].shape == kv, cache["ak"].shape
-    log(f"bf16 prefill {b} x {s} tokens in {prefill_s:.6f} s = "
-        f"{b * s / prefill_s:.1f} tokens/s; launched {json.dumps(launches)}; "
-        f"peak memory {torch.cuda.max_memory_allocated()} B {card}")
-    del logits, cache
+    walls = []
+    for _ in range(PREFILL_RUNS):
+        native.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(toks)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = check_prefill_launches(dict(native.LAUNCHES), cfg,
+                                          "_sm90")
+        assert logits.shape == (b, 1, cfg.vocab)
+        assert torch.isfinite(logits).all() and all(
+            torch.isfinite(v).all() for v in cache.values()), "non-finite"
+        kv = (cfg.n_layers // cfg.hybrid_attn_every, b, s, cfg.n_kv_heads,
+              cfg.head_dim_)
+        assert cache["ak"].shape == kv, cache["ak"].shape
+        del logits, cache
+    prefill_s = statistics.median(walls)
+    log(f"bf16 prefill {b} x {s} tokens: {PREFILL_RUNS} runs of "
+        f"{', '.join(f'{w:.6f}' for w in walls)} s, median "
+        f"{prefill_s:.6f} s = {b * s / prefill_s:.1f} tokens/s; each "
+        f"launched {json.dumps(launches)}; peak memory "
+        f"{torch.cuda.max_memory_allocated()} B {card}")
     free()
     log("bf16 prefill time by kernel family: " + time_breakdown(
         lambda: model.prefill(toks), card))
@@ -761,7 +793,7 @@ def model_phase(seed: int, card: str) -> dict:
     reg.engine.close()
     del model, cache
     free()
-    return launches
+    return {k: got[k] + launches[k] for k in got}
 
 
 # Kernel against plain version.  SSD: f32 sums in another order, within
@@ -773,14 +805,22 @@ FLASH_BF16_TOL = (2 ** -12, 2 ** -7)  # (atol, rtol), elementwise
 FLASH_F32_TOL = 1e-4  # max abs
 SSD_SWEEP = [  # (b, s, h, p, n, chunk)
     (1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 64, 128),
-    (2, 256, 3, 64, 128, 128), (4, 2048, 112, 64, 64, 128)]
+    (2, 256, 3, 64, 128, 128), (4, 2048, 112, 64, 64, 128),
+    (2, 1024, 24, 64, 128, 128)]  # mamba2-130m's heads and state
 FLASH_SWEEP = [  # (b, sq, skv, hq, hkv, d, causal, window)
     (1, 128, 128, 4, 4, 64, True, None), (2, 256, 256, 8, 2, 64, True, None),
     (1, 128, 128, 4, 1, 128, True, 64), (2, 100, 100, 4, 2, 64, True, None),
     (1, 64, 320, 4, 2, 64, True, None), (1, 128, 128, 4, 4, 64, False, None),
     (2, 96, 96, 4, 4, 112, True, None), (1, 130, 130, 4, 2, 112, True, 48),
     (1, 40, 40, 2, 2, 256, True, None), (1, 33, 33, 2, 1, 20, False, 7),
-    (1, 8, 5, 2, 2, 16, True, None), (4, 2048, 2048, 32, 32, 112, True, None)]
+    (1, 8, 5, 2, 2, 16, True, None), (4, 2048, 2048, 32, 32, 112, True, None),
+    # the tensor-core kernel's edges: ragged q tiles with Skv > Sq,
+    # danube3's D = 120 with GQA 4 and window 4096, gemma3's D = 256 with
+    # one kv head and window 512, D = 64 without the mask
+    (2, 300, 500, 4, 2, 112, True, None),
+    (1, 4608, 4608, 8, 2, 120, True, 4096),
+    (1, 1024, 1024, 4, 1, 256, True, 512),
+    (2, 512, 512, 4, 4, 64, False, None)]
 
 
 def ssd_inputs(b, s, h, p, n, q, dtype, g):
@@ -796,13 +836,18 @@ def ssd_inputs(b, s, h, p, n, q, dtype, g):
 
 
 def model_kernel_checks(launches: dict, seed: int, card: str) -> list:
-    """Phase 6: the SSD and flash kernels against their plain versions
-    at the shapes the bf16 prefill gives them, then over a sweep of
-    other shapes in f32 and bf16."""
+    """Phase 6: the model kernels against their plain versions at the
+    shapes the bf16 prefill gives them: the tensor-core kernels through
+    the public wrappers, the CUDA-core kernels on the same inputs through
+    their private launch functions; planted faults that the tolerances
+    must reject; then a sweep of other shapes in f32 and bf16."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import native
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd import ssd_chunks, ssd_chunks_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
 
     cfg = get_config(MODEL_ARCH)
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -815,15 +860,31 @@ def model_kernel_checks(launches: dict, seed: int, card: str) -> list:
     tri = q * (q + 1) // 2
     ssd_bytes = (2 * x.numel() + 4 * 2 * dt.numel() + 2 * 2 * Bm.numel()
                  + 4 * x.numel() + 4 * cells * n * p)
-    ssd_ops = cells * (2 * tri * n + 2 * tri * p + 2 * q * n * p)
+    ssd_ops_n = cells * (2 * tri * n + 2 * tri * p + 2 * q * n * p)
     want = ssd_chunks_ref(x, dac, dt, Bm, Cm, chunk=q)
-    scale = float(max(want[0].abs().max(), want[1].abs().max()))
-    records = [check_kernel(
+    tol = SSD_TOL * float(max(want[0].abs().max(), want[1].abs().max()))
+    assert ssd_ops.kernel_for(bf, p, n, q) == "ssd_sm90"
+    simt = check_kernel(
         "ssd", launches["ssd"],
+        lambda: ssd_ops._launch_simt(x, dac, dt, Bm, Cm, q),
+        lambda: ssd_chunks_ref(x, dac, dt, Bm, Cm, chunk=q), ssd_bytes,
+        card, ops=ssd_ops_n, tol=tol)
+    sm90 = check_kernel(
+        "ssd_sm90", launches["ssd_sm90"],
         lambda: ssd_chunks(x, dac, dt, Bm, Cm, chunk=q),
         lambda: ssd_chunks_ref(x, dac, dt, Bm, Cm, chunk=q), ssd_bytes,
-        card, ops=ssd_ops, tol=SSD_TOL * scale)]
-    del x, Bm, Cm, dt, dac, want
+        card, ops=ssd_ops_n, tol=tol)
+    sm90["simt_ms"] = simt["ms"]
+    records = [simt, sm90]
+    # A plausible wrong kernel that SSD_TOL must reject: the diagonal
+    # u == t left out of the causal mask.
+    wrong = ssd_ops._launch_sm90(x, dac, dt, Bm, Cm, q, planted_fault=True)
+    used = allowance_used(wrong, want, tol)
+    assert used > 1, f"SSD tolerance passes the diagonal left out ({used})"
+    log(f"ssd_sm90 with the diagonal left out of the mask: max abs err "
+        f"{max_abs_err(wrong, want)}, {used} of the tolerance used: "
+        f"rejected")
+    del x, Bm, Cm, dt, dac, want, wrong
     free()
 
     hq, d = cfg.n_heads, cfg.head_dim_
@@ -832,28 +893,45 @@ def model_kernel_checks(launches: dict, seed: int, card: str) -> list:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qq, kk, vv))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_bytes = 2 * 4 * qq.numel()
-    flash_ops = 4 * d * b * hq * (s * (s + 1) // 2)
-    records.append(check_kernel(
+    flash_ops_n = 4 * d * b * hq * (s * (s + 1) // 2)
+    atol, rtol = FLASH_BF16_TOL
+    assert flash_ops.kernel_for(bf, d, hq, hq) == "flash_attention_sm90"
+    simt = check_kernel(
         "flash_attention", launches["flash_attention"],
+        lambda: flash_ops._launch_simt(qq, kk, vv, None, True, None),
+        lambda: attention_ref(qq, kk, vv, causal=True), flash_bytes, card,
+        ops=flash_ops_n, tol=atol, rtol=rtol,
+        library=lambda: sdpa(qt, kt, vt, is_causal=True))
+    sm90 = check_kernel(
+        "flash_attention_sm90", launches["flash_attention_sm90"],
         lambda: flash_attention(qq, kk, vv, causal=True),
         lambda: attention_ref(qq, kk, vv, causal=True), flash_bytes, card,
-        ops=flash_ops, tol=FLASH_BF16_TOL[0], rtol=FLASH_BF16_TOL[1],
-        library=lambda: sdpa(qt, kt, vt, is_causal=True)))
-    # The tolerance must reject a plausible wrong kernel: the kernel
+        ops=flash_ops_n, tol=atol, rtol=rtol,
+        library=lambda: sdpa(qt, kt, vt, is_causal=True))
+    sm90["simt_ms"] = simt["ms"]
+    records += [simt, sm90]
+    want = attention_ref(qq, kk, vv, causal=True)
+    # SDPA's reading (not a check): how much of the tolerance a library
+    # kernel with a bf16 P uses at this shape.
+    lib = sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+    log(f"scaled_dot_product_attention at this shape: max abs err "
+        f"{max_abs_err(lib, want)}, {allowance_used(lib, want, atol, rtol)} "
+        f"of the flash tolerance used (a reading, not a check) {card}")
+    # The tolerance must reject a plausible wrong kernel: the new kernel
     # itself with the softmax scale of D padded to a power of two.
     padded = 1 << (d - 1).bit_length()
-    want = attention_ref(qq, kk, vv, causal=True)
+    n0 = native.LAUNCHES["flash_attention_sm90"]
     wrong = flash_attention(qq, kk, vv, causal=True, scale=padded ** -0.5)
-    atol, rtol = FLASH_BF16_TOL
+    assert native.LAUNCHES["flash_attention_sm90"] == n0 + 1
     used = allowance_used(wrong, want, atol, rtol)
     outside = float(((wrong.float() - want.float()).abs()
                      > atol + rtol * want.float().abs()).float().mean())
     assert padded != d and used > 1, \
         f"flash tolerance passes the scale of D = {padded} ({used})"
-    log(f"flash_attention with the scale of D = {padded}: max abs err "
+    log(f"flash_attention_sm90 with the scale of D = {padded}: max abs err "
         f"{max_abs_err(wrong, want)}, {used} of the tolerance used, "
         f"{100 * outside:.3f}% of elements outside it: rejected")
-    del qq, kk, vv, qt, kt, vt, want, wrong
+    del qq, kk, vv, qt, kt, vt, want, wrong, lib
     free()
     kernel_sweep(g)
     return records
@@ -866,7 +944,10 @@ def kernel_sweep(g) -> None:
     logging every case if any is out of tolerance."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention.ops import \
+        kernel_for as flash_kernel_for
     from repro_torch.kernels.ssd import ssd_chunks, ssd_chunks_ref
+    from repro_torch.kernels.ssd.ops import kernel_for as ssd_kernel_for
 
     fails = []
     for shape in SSD_SWEEP:
@@ -881,8 +962,9 @@ def kernel_sweep(g) -> None:
             ok = used <= 1 and all(torch.isfinite(a).all() for a in got)
             if not ok:
                 fails.append(("ssd", shape, dtype))
-            log(f"ssd {shape} {dtype}: max abs err {max_abs_err(got, want)}, "
-                f"{used} of the tolerance used")
+            log(f"ssd {shape} {dtype} ({ssd_kernel_for(dtype, *shape[3:])})"
+                f": max abs err {max_abs_err(got, want)}, {used} of the "
+                f"tolerance used")
     for shape in FLASH_SWEEP:
         b, sq, skv, hq, hkv, d, causal, window = shape
         for dtype in (torch.float32, torch.bfloat16):
@@ -900,7 +982,8 @@ def kernel_sweep(g) -> None:
                 and bool(torch.isfinite(got).all())
             if not ok:
                 fails.append(("flash", shape, dtype))
-            log(f"flash {shape} {dtype}: max abs err "
+            log(f"flash {shape} {dtype} "
+                f"({flash_kernel_for(dtype, d, hq, hkv)}): max abs err "
                 f"{max_abs_err(got, want)}, {used} of the tolerance used")
     free()
     assert not fails, f"kernels differ from their plain versions: {fails}"

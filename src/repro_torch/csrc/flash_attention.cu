@@ -24,9 +24,11 @@
 //
 // Bound: at zamba2's prefill (s = 2048, 32 heads of 112, bf16) the
 // causal products are ~1.2e11 FLOP against ~0.24 GB of q, k, v and o,
-// so the tensor-core rate bounds it.  This first kernel runs on the
-// CUDA cores and is limited by its shared-memory reads (one per FMA);
-// a wgmma redesign is later work.
+// so the tensor-core rate bounds it.  This kernel runs on the CUDA
+// cores and is limited by its shared-memory reads (one per FMA).  It
+// takes f32 and the head dims outside the tensor-core kernel's domain;
+// bf16 with D % 8 == 0 goes to flash_attention_sm90.cu (TMA + wgmma),
+// as kernels/flash_attention/ops.py::kernel_for decides.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

@@ -25,9 +25,11 @@
 // cell does ~3.2 MFLOP (the causal half of C B^T and of M x, plus the
 // state) against ~100 KB moved, ~32 FLOP a byte, below the H100's
 // ridge of ~295: HBM bandwidth bounds it, and the f32 y_intra and
-// state outputs are two thirds of the bytes.  This first kernel runs
-// its products on the CUDA cores from shared memory, far from either
-// bound; a later redesign moves them to the tensor cores.
+// state outputs are two thirds of the bytes.  This kernel runs its
+// products on the CUDA cores from shared memory, far from either
+// bound.  It takes f32 and the shapes outside the tensor-core kernel's
+// domain; bf16 with p, n and q multiples of 16 goes to ssd_sm90.cu
+// (mma.sync), as kernels/ssd/ops.py::kernel_for decides.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

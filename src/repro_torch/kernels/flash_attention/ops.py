@@ -1,11 +1,14 @@
-"""Wrapper of the flash attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the flash attention kernels (``csrc/flash_attention_sm90.cu``
+and ``csrc/flash_attention.cu``).
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py::
 flash_attention_pallas`` and its wrapper's (B, S, H, D) interface.  A
-CPU tensor takes the plain version; a CUDA tensor launches the kernel,
-one launch over every (batch, head, query tile), or raises.  The kernel
-reads the (B, S, H, D) layout as it lies: nothing is padded or
-transposed.
+CPU tensor takes the plain version; a CUDA tensor launches one kernel,
+one launch over every (batch, head, query tile), or raises.
+``kernel_for`` picks that kernel from the dtype and the shape alone,
+before the launch: bf16 with D % 8 == 0 goes to the wgmma kernel, the
+rest (f32, odd head dims) to the CUDA-core kernel.  Both read the (B,
+S, H, D) layout as it lies: nothing is padded or transposed.
 """
 
 from __future__ import annotations
@@ -32,29 +35,82 @@ def flash_attention(q, k, v, *, scale=None, causal: bool = True,
         return _launch(q, k, v, scale, causal, window)
 
 
+def kernel_for(dtype: torch.dtype, head_dim: int, hq: int, hkv: int) -> str:
+    """The kernel a CUDA call launches: ``flash_attention_sm90`` (TMA and
+    wgmma, bf16 in boxes of 64 columns, so every global stride must be a
+    multiple of 16 bytes) for bf16 with D % 8 == 0, D <= 256 and
+    Hq % Hkv == 0, else ``flash_attention`` (CUDA cores, f32 or bf16)."""
+    if dtype == torch.bfloat16 and head_dim % 8 == 0 \
+            and 0 < head_dim <= MAX_HEAD_DIM and hkv > 0 and hq % hkv == 0:
+        return "flash_attention_sm90"
+    return "flash_attention"
+
+
 def _launch(q, k, v, scale, causal, window):
+    if kernel_for(q.dtype, q.shape[-1], q.shape[-2], k.shape[-2]) \
+            == "flash_attention_sm90":
+        return _launch_sm90(q, k, v, scale, causal, window)
+    return _launch_simt(q, k, v, scale, causal, window)
+
+
+def _check(q, k, v) -> torch.device:
     dev = native.require_cuda("flash_attention", q, k, v,
                               dtypes=native.FLOATS)
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"flash_attention: q, k, v in one type, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    b, sq, hq, d = q.shape
-    _, skv, hkv, _ = k.shape
+    b, _, hq, d = q.shape
+    _, _, hkv, _ = k.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d \
             or hq % hkv or not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    return dev
+
+
+def _args(q, k, v, scale, causal, window):
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
     if scale is None:
         scale = d ** -0.5
     o = torch.empty_like(q)
-    fn = native.library("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
-        [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return o, [native.ptr(q), native.ptr(k), native.ptr(v), native.ptr(o), b,
+               sq, skv, hq, hkv, d, float(scale), int(causal),
+               int(window is not None), int(window or 0)]
+
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] \
+    + [ctypes.c_int] * 3
+
+
+def _launch_sm90(q, k, v, scale, causal, window):
+    """The wgmma kernel; bf16 operands in its domain (``kernel_for``),
+    16-byte aligned for the tensor maps."""
+    dev = _check(q, k, v)
+    if kernel_for(q.dtype, q.shape[3], q.shape[2], k.shape[2]) \
+            != "flash_attention_sm90":
+        raise ValueError(f"flash_attention_sm90: bf16 with D % 8 == 0 "
+                         f"only, got {q.dtype}, {tuple(q.shape)}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_sm90: operands must be 16-byte "
+                         "aligned")
+    o, args = _args(q, k, v, scale, causal, window)
+    fn = native.library("flash_attention_sm90").flash_attention_sm90_launch
+    fn.argtypes = _ARGTYPES + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(native.ptr(q), native.ptr(k), native.ptr(v), native.ptr(o), b,
-             sq, skv, hq, hkv, d, float(scale), int(causal),
-             int(window is not None), int(window or 0),
-             int(q.dtype == torch.bfloat16), native.stream(dev))
-    native.check("flash_attention", err)
+    native.check("flash_attention_sm90", fn(*args, native.stream(dev)))
+    native.count_launch("flash_attention_sm90")
+    return o
+
+
+def _launch_simt(q, k, v, scale, causal, window):
+    """The CUDA-core kernel, f32 or bf16, any D up to 256."""
+    dev = _check(q, k, v)
+    o, args = _args(q, k, v, scale, causal, window)
+    fn = native.library("flash_attention").flash_attention_launch
+    fn.argtypes = _ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    native.check("flash_attention", fn(*args, int(q.dtype == torch.bfloat16),
+                                       native.stream(dev)))
     native.count_launch("flash_attention")
     return o

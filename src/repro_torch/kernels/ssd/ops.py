@@ -1,14 +1,17 @@
-"""Chunked SSD scan: the intra-chunk kernel (``csrc/ssd.cu``) plus the
-inter-chunk recurrence in torch.
+"""Chunked SSD scan: the intra-chunk kernels (``csrc/ssd_sm90.cu`` and
+``csrc/ssd.cu``) plus the inter-chunk recurrence in torch.
 
-``ssd_chunks`` is the kernel's wrapper and replaces
+``ssd_chunks`` is the kernels' wrapper and replaces
 ``src/repro/kernels/ssd/kernel.py::ssd_chunks_pallas``: a CPU tensor
-takes the plain version, a CUDA tensor launches the kernel, one launch
-over every (batch, head, chunk) cell, or raises.  ``ssd_chunked_scan``
+takes the plain version, a CUDA tensor launches one kernel over every
+(batch, head, chunk) cell, or raises.  ``kernel_for`` picks that kernel
+from the dtype and the shape alone, before the launch: bf16 with p, n
+and the chunk multiples of 16 goes to the tensor-core kernel, the rest
+(f32, small states) to the CUDA-core kernel.  ``ssd_chunked_scan``
 keeps the outer algorithm of ``repro.kernels.ssd.ops.ssd_chunked_scan``:
 the ``dac`` cumsum, a loop over chunks carrying the state, and the
 inter-chunk output.  Unlike the reference it never broadcasts B and C
-over heads: the kernel reads them by batch index, and ``y_inter``
+over heads: the kernels read them by batch index, and ``y_inter``
 applies ``exp(dac)`` after the head-free product with C.
 """
 
@@ -22,6 +25,9 @@ from ...obs import span
 from .. import native
 from .ref import ssd_chunks_ref
 
+SMEM_BYTES = 232_448  # shared memory an H100 block may use
+SM90_HEADS = 2  # heads a block of the tensor-core kernel
+
 
 def ssd_chunks(x, dac, dt, B, C, *, chunk: int):
     """Intra-chunk outputs and end-of-chunk states; shapes as in
@@ -32,7 +38,33 @@ def ssd_chunks(x, dac, dt, B, C, *, chunk: int):
         return _launch(x, dac, dt, B, C, chunk)
 
 
+def sm90_smem_bytes(p: int, n: int, chunk: int) -> int:
+    """Shared memory of one block of ``ssd_sm90``: B and C, two x
+    buffers (rows padded by 16 bytes), dac, dt and the decay weights of
+    its heads."""
+    return 2 * chunk * (2 * n + 16) + 2 * chunk * (2 * p + 16) \
+        + 3 * SM90_HEADS * chunk * 4
+
+
+def kernel_for(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
+    """The kernel a CUDA call launches: ``ssd_sm90`` (mma.sync on bf16
+    tiles of 16) for bf16 with p, n and the chunk multiples of 16 whose
+    block fits in shared memory, else ``ssd`` (CUDA cores, f32 or
+    bf16)."""
+    if dtype == torch.bfloat16 and p > 0 and n > 0 and chunk > 0 \
+            and not p % 16 and not n % 16 and not chunk % 16 \
+            and sm90_smem_bytes(p, n, chunk) <= SMEM_BYTES:
+        return "ssd_sm90"
+    return "ssd"
+
+
 def _launch(x, dac, dt, B, C, chunk):
+    if kernel_for(x.dtype, x.shape[-1], B.shape[-1], chunk) == "ssd_sm90":
+        return _launch_sm90(x, dac, dt, B, C, chunk)
+    return _launch_simt(x, dac, dt, B, C, chunk)
+
+
+def _check(x, dac, dt, B, C, chunk) -> torch.device:
     dev = native.require_cuda("ssd", x, dac, dt, B, C,
                               dtypes=native.FLOATS)
     if not x.dtype == B.dtype == C.dtype:
@@ -47,16 +79,54 @@ def _launch(x, dac, dt, B, C, chunk):
         raise ValueError(f"ssd: bad shapes x {tuple(x.shape)}, B "
                          f"{tuple(B.shape)}, dac {tuple(dac.shape)}, "
                          f"chunk {chunk}")
+    return dev
+
+
+def _outputs(x, B, chunk, dev):
+    b, s, h, p = x.shape
+    n = B.shape[-1]
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
     states = torch.empty((b, s // chunk, h, n, p), dtype=torch.float32,
                          device=dev)
+    return y, states, [b, s, h, p, n, chunk]
+
+
+def _launch_sm90(x, dac, dt, B, C, chunk, *, planted_fault: bool = False):
+    """The tensor-core kernel; bf16 operands in its domain
+    (``kernel_for``), 16-byte aligned for its copies.  ``planted_fault``
+    launches a variant that leaves the diagonal u == t out of the mask,
+    for checks that must reject it."""
+    dev = _check(x, dac, dt, B, C, chunk)
+    if kernel_for(x.dtype, x.shape[-1], B.shape[-1], chunk) != "ssd_sm90":
+        raise ValueError(f"ssd_sm90: bf16 with p, n, chunk multiples of "
+                         f"16 only, got {x.dtype}, {tuple(x.shape)}, n "
+                         f"{B.shape[-1]}, chunk {chunk}")
+    if any(t.data_ptr() % 16 for t in (x, B, C)):
+        raise ValueError("ssd_sm90: x, B, C must be 16-byte aligned")
+    y, states, dims = _outputs(x, B, chunk, dev)
+    fn = native.library("ssd_sm90").ssd_sm90_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(native.ptr(x), native.ptr(dac), native.ptr(dt), native.ptr(B),
+             native.ptr(C), native.ptr(y), native.ptr(states), *dims,
+             int(planted_fault), native.stream(dev))
+    native.check("ssd_sm90", err)
+    native.count_launch("ssd_sm90")
+    return y, states
+
+
+def _launch_simt(x, dac, dt, B, C, chunk):
+    """The CUDA-core kernel, f32 or bf16, any p, n and chunk."""
+    dev = _check(x, dac, dt, B, C, chunk)
+    y, states, dims = _outputs(x, B, chunk, dev)
     fn = native.library("ssd").ssd_chunks_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(native.ptr(x), native.ptr(dac), native.ptr(dt), native.ptr(B),
-             native.ptr(C), native.ptr(y), native.ptr(states), b, s, h, p,
-             n, chunk, int(x.dtype == torch.bfloat16), native.stream(dev))
+             native.ptr(C), native.ptr(y), native.ptr(states), *dims,
+             int(x.dtype == torch.bfloat16), native.stream(dev))
     native.check("ssd", err)
     native.count_launch("ssd")
     return y, states
