@@ -7,7 +7,7 @@ and this checkout; without them it exits non-zero before printing any
 result.  Phases, each of which fails the run on any error:
 
 1. Environment: the card's name and power limit, torch and CUDA
-   versions, and the seconds the eight kernels took to build (one nvcc
+   versions, and the seconds the ten kernels took to build (one nvcc
    per source, all started together).
 2. The store's slice: an 8-shard hash-partitioned GLORAN
    ``Engine`` on ``cuda`` with the paper's default ``LSMConfig`` loads
@@ -16,8 +16,10 @@ result.  Phases, each of which fails the run on any error:
    batches of 8192 keys (half loaded, half uniform).  Results must
    equal a plain model of the op stream (last put wins; a range delete
    kills every older put it covers); every shard sub-batch must take
-   one cascade launch covering G >= 1 GLORAN levels, and compactions
-   must go through the merge-rank kernel.  Bottom-compaction GC leaves
+   one ``cascade_sm90`` launch covering G >= 1 GLORAN levels and no
+   ``cascade`` launch, and every ``merge_ranks`` call of the load one
+   ``merge_path_sm90`` launch and no ``merge_rank`` launch.
+   Bottom-compaction GC leaves
    the DR-tree levels empty at the end of the load, so range deletes
    continue until every shard's index flushes a level again, and the
    lookups run once more against that state, the profiler reading the
@@ -25,11 +27,25 @@ result.  Phases, each of which fails the run on any error:
 3. The per-level route: the same lookups with the cascade off (bloom
    and interval kernels) must return the same results.
 4. Each store kernel against its plain PyTorch version on the card, at
-   the shapes the slice gives it (one shard's lookup sub-batch against
-   the store's own pack, filter and DR-tree level; merge runs of 2^19
-   and 2^16), bit-exact, with its median time, the plain version's
-   time, its bound and, for merge-rank, ``torch.searchsorted`` as a
-   yardstick.
+   the shapes the slice gives it, bit-exact, with its median time, the
+   plain version's time, its bound and, for the merge kernels, the
+   ``torch.searchsorted`` pair as a yardstick.  Both cascade kernels
+   take shard 0's sub-batch of a real lookup batch as the engine's
+   partitioner and memtable probe make it (request order) against
+   shard 0's pack, and are timed there, on the same keys sorted, on the
+   mixed batch of earlier runs (half uniform keys sorted, half level
+   keys in random order), and rotated over the eight shards' sub-batches
+   and packs; ``cascade_sm90`` also with 8, 16 and 32 lanes, beside an
+   empty kernel on its grid (the launch floor).  Keys set to area
+   starts must leave both exact and fail ``cascade_sm90`` with its
+   GLORAN stab at lower_bound (a planted fault); both run at n = 8192
+   too.  Both merge kernels take runs of 2^19 and 2^16 with cross-run
+   duplicates, where ``merge_path_sm90`` with ties broken b-first (a
+   planted fault) must fail, then a sweep: (2^12, 2^16), (2^16, 2^19),
+   (2^19, 2^22), all keys equal, disjoint runs both ways, a run of one
+   both ways, ragged lengths, and 0 and 0xFFFFFFFE present.  Bloom
+   and interval: one shard's sub-batch against the deepest level's
+   filter and the largest DR-tree level.
 5. The model stack's slice: zamba2-7b at full width and depth (81
    layers, d_model 3584, random weights from ``--seed``).  In f32, a
    prefill of 2 x 128 tokens must launch the CUDA-core SSD kernel 81
@@ -70,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import math
 import statistics
@@ -110,6 +127,10 @@ KERNEL_SOURCES = {
                  "src/repro/kernels/ssd/kernel.py:49"),
     "flash_attention_sm90": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                              "src/repro/kernels/flash_attention/kernel.py:82"),
+    "cascade_sm90": ("src/repro_torch/csrc/cascade_sm90.cu",
+                     "src/repro/kernels/cascade/kernel.py:125"),
+    "merge_path_sm90": ("src/repro_torch/csrc/merge_path_sm90.cu",
+                        "src/repro/kernels/merge/kernel.py:53"),
 }
 
 
@@ -328,12 +349,15 @@ def report_lookups(tag, lat, card) -> None:
         f"{ms[int(0.99 * (len(ms) - 1))]:.3f} ms {card}")
 
 
-def check_cascade_path(eng, kc0, kc1, launches, shards) -> list:
-    """Every shard sub-batch took exactly one cascade launch; returns
+def check_cascade_path(eng, kc0, kc1, launches: dict, shards) -> list:
+    """Every shard sub-batch took exactly one ``cascade_sm90`` launch and
+    no ``cascade`` launch (``launches``: the window's counts); returns
     the shards' cascade views."""
     sub_batches = LOOKUP_BATCHES * shards
     calls = kc1.cascade_calls - kc0.cascade_calls
-    assert calls == sub_batches == launches, (calls, sub_batches, launches)
+    assert calls == sub_batches == launches["cascade_sm90"], \
+        (calls, sub_batches, launches)
+    assert launches["cascade"] == 0, launches
     views = [sh.registry.view(sh.tree) for sh in eng.shards]
     assert all(v is not None and v.state.G >= 1 for v in views), views
     return views
@@ -372,6 +396,7 @@ def store_phases(card: str) -> list[dict]:
     eng, keys, los = build_slice(3_000_000, shards, 0, "cuda")
     batches = make_lookups(0, keys, LOOKUP_BATCHES, LOOKUP_BATCH)
     torch.cuda.reset_peak_memory_stats()
+    kc_start = eng.kernel_counters
     native.reset_launches()
     load_s = load(eng, keys, los)
     load_launches = dict(native.LAUNCHES)
@@ -389,9 +414,12 @@ def store_phases(card: str) -> list[dict]:
     log(f"results equal the model on {LOOKUP_BATCHES * LOOKUP_BATCH} "
         f"lookups ({sum(int(f.sum()) for f, _ in results)} found)")
     views = check_cascade_path(
-        eng, kc0, kc1, main_launches["cascade"] - load_launches["cascade"],
-        shards)
-    assert kc1.merge_calls > 0 and main_launches["merge_rank"] > 0, kc1
+        eng, kc0, kc1, {k: main_launches[k] - load_launches[k]
+                        for k in ("cascade", "cascade_sm90")}, shards)
+    # One merge_path_sm90 launch a merge_ranks call, none of merge_rank.
+    merges = kc1.merge_calls - kc_start.merge_calls
+    assert merges > 0 and main_launches["merge_path_sm90"] == merges \
+        and main_launches["merge_rank"] == 0, (merges, main_launches)
     log(f"kernel counters: {json.dumps(kc1.snapshot())}")
     log(f"cascade L per shard {[v.state.L for v in views]}, G per shard "
         f"{[v.state.G for v in views]}, level entries "
@@ -415,12 +443,12 @@ def store_phases(card: str) -> list[dict]:
     report_lookups(f"lookups after {los_all.size - los.size} more range "
                    "deletes", lat, card)
     check_results(results, batches, keys, los_all)
-    views = check_cascade_path(eng, kc2, kc3, main2["cascade"], shards)
+    views = check_cascade_path(eng, kc2, kc3, main2, shards)
     areas = [v.state.gl_cnt.tolist() for v in views]
     assert all(sum(a) > 0 for a in areas), areas
-    main_launches["cascade"] += main2["cascade"]
+    main_launches["cascade_sm90"] += main2["cascade_sm90"]
     log(f"results equal the model; GLORAN areas per shard {areas}; "
-        f"cascade launches {main2['cascade']}")
+        f"cascade_sm90 launches {main2['cascade_sm90']}")
     log(device_busy(eng, batches[:4]))
 
     # 3. the per-level route on the same store: cascade off, and every
@@ -446,7 +474,7 @@ def store_phases(card: str) -> list[dict]:
     log(f"per-level launches {json.dumps(route_launches)}")
 
     # 4. each kernel against its plain version at the path's shapes
-    records = kernel_checks(eng, views, main_launches,
+    records = kernel_checks(eng, views, batches, main_launches,
                             route_launches, card)
     eng.close()
     return records
@@ -487,68 +515,306 @@ def check_kernel(name, launches, kernel, plain, bytes_, card, *, ops=0,
             "library_ms": lib_ms}
 
 
-def kernel_checks(eng, views, main_launches, route_launches,
+def same(got, want) -> bool:
+    """Bit-exact equality of two kernels' output tensors or tuples."""
+    if isinstance(got, tuple):
+        return all(same(g, w) for g, w in zip(got, want))
+    return torch.equal(got, want)
+
+
+def cascade_bytes(st, tree, qh: np.ndarray) -> int:
+    """The cascade's bound in bytes for these queries against this pack:
+    the queries read and the outputs written once, and the distinct
+    sectors of the fence and GLORAN searches, the Bloom probes, the hit
+    and the area loads."""
+    n = len(qh)
+    probes = sum(bloom_probe_counts(
+        qh, lvl.bloom.words, lvl.bloom.m_bits, lvl.bloom.seeds)
+        for lvl in tree.levels if lvl is not None and len(lvl))
+    sectors = (probes + sum(min(search_sectors(c, n) + n, c // 8 + 1)
+                            for c in st.key_cnt.tolist())
+               + sum(min(search_sectors(c, n), c // 8 + 1) + 3 * n
+                     for c in st.gl_cnt.tolist()))
+    return 16 * n + (12 + 4 * st.L) * n + SECTOR * sectors
+
+
+def capture_sub_batches(eng, batch: np.ndarray) -> dict:
+    """The cascade's inputs for each shard's sub-batch of one lookup
+    batch, as the engine's own partitioner and memtable probe make them
+    (request order): {shard: (qkey, qhash, qseq, qres) on the card}."""
+    from repro_torch.engine import executor
+    from repro_torch.kernels.u32 import to_device
+    dev = eng.device
+    seen = []
+    real = executor.cascade_lookup
+
+    def spy(qkey32, qhash32, qseq32, qres, state):
+        seen.append((state, (to_device(qkey32, dev), to_device(qhash32, dev),
+                             to_device(qseq32, dev),
+                             to_device(np.asarray(qres, bool), dev,
+                                       np.int32))))
+        return real(qkey32, qhash32, qseq32, qres, state)
+
+    cascade_on = eng.config.use_cascade_kernel
+    executor.cascade_lookup = spy
+    eng.config.use_cascade_kernel = True
+    try:
+        eng.get_batch(batch)
+    finally:
+        executor.cascade_lookup = real
+        eng.config.use_cascade_kernel = cascade_on
+    shard_of = {id(sh.registry.view(sh.tree).state): s
+                for s, sh in enumerate(eng.shards)}
+    return {shard_of[id(st)]: q for st, q in seen}
+
+
+def at_area_starts(q, st, rng):
+    """The queries with a quarter of their keys set to the pack's GLORAN
+    area starts, resolved by the memtable with the area's smin as seq:
+    each such key is covered, and a stab one area to the left is not."""
+    from repro_torch.core.eve import fold64to32
+    from repro_torch.kernels.u32 import to_device, to_numpy
+    dev = q[0].device
+    areas = np.concatenate([np.arange(o, o + c) for o, c in
+                            zip(st.gl_off.tolist(), st.gl_cnt.tolist())])
+    n = q[0].numel()
+    k = torch.as_tensor(areas[rng.integers(0, len(areas), n // 4)],
+                        device=dev)
+    idx = torch.as_tensor(rng.permutation(n)[:n // 4], device=dev)
+    qk, _, qs, qr = (t.clone() for t in q)
+    qk[idx] = st.glo_lo[k]
+    qs[idx] = st.glo_smin[k]
+    qr[idx] = 1
+    qh = to_device(fold64to32(to_numpy(qk).astype(np.uint64)), dev)
+    return qk, qh, qs, qr
+
+
+def cascade_checks(eng, views, batches, mixed_keys, launches, card,
+                   rng) -> list[dict]:
+    """Both cascade kernels against the plain version on shard 0's
+    request-order sub-batch of a real lookup batch; timed there, on the
+    same keys sorted, on the earlier runs' batch ``mixed_keys``, and rotated
+    over the eight shards' sub-batches and packs as the path runs them,
+    beside an empty kernel's launch floor; the lane-group sizes; the
+    planted fault; a whole batch of 8192 keys."""
+    from repro_torch.core.eve import fold64to32
+    from repro_torch.kernels.cascade import ops as cops
+    from repro_torch.kernels.cascade.ref import cascade_ref
+    from repro_torch.kernels.u32 import to_device
+    dev = eng.device
+    subs = capture_sub_batches(eng, batches[0])
+    states = [v.state for v in views]
+    st, tree = states[0], eng.shards[0].tree
+    q = subs[0]
+    n = q[0].numel()
+    order = torch.argsort(q[0].to(torch.int64) & 0xFFFFFFFF)
+    inputs = {  # shard 0's pack, other orders and keys
+        "sorted": tuple(t[order].contiguous() for t in q),
+        "mixed": (to_device(mixed_keys, dev),
+                 to_device(fold64to32(mixed_keys), dev),
+                 to_device(np.zeros(len(mixed_keys)), dev),
+                 to_device(np.zeros(len(mixed_keys)), dev, np.int32))}
+    rot = [(subs[s], states[s]) for s in range(len(states))]
+    by = cascade_bytes(st, tree, q[1].cpu().numpy().view(np.uint32))
+    old = check_kernel("cascade", launches["cascade"],
+                       lambda: cops._launch_simt(*q, st),
+                       lambda: cascade_ref(*q, st), by, card)
+    new = check_kernel("cascade_sm90", launches["cascade_sm90"],
+                       lambda: cops.cascade_masks(*q, st),
+                       lambda: cascade_ref(*q, st), by, card)
+    new["simt_ms"] = old["ms"]
+    new["lanes"] = cops.LANES
+    new["lanes_ms"] = {}
+    for w in (8, 16, 32):
+        assert same(cops._launch_sm90(*q, st, lanes=w),
+                    cascade_ref(*q, st)), w
+        new["lanes_ms"][w] = time_kernel_ms(
+            lambda: cops._launch_sm90(*q, st, lanes=w))
+    for rec, fn in ((old, cops._launch_simt), (new, cops.cascade_masks)):
+        for key, x in inputs.items():
+            assert same(fn(*x, st), cascade_ref(*x, st)), (rec["name"], key)
+            rec[f"{key}_ms"] = time_kernel_ms(lambda: fn(*x, st))
+        turn = itertools.count()
+
+        def rotated(fn=fn):
+            x, state = rot[next(turn) % len(rot)]
+            return fn(*x, state)
+        rec["rotated_ms"] = time_kernel_ms(rotated, reps=8 * len(rot))
+    new["floor_ms"] = time_kernel_ms(lambda: cops._launch_floor(n, st))
+    log(f"cascade, ms a launch as cascade / cascade_sm90: shard 0's "
+        f"request-order sub-batch (n = {n}, L = {st.L}, G = {st.G}) "
+        f"{old['ms']:.6f} / {new['ms']:.6f}; the same keys sorted "
+        f"{old['sorted_ms']:.6f} / {new['sorted_ms']:.6f}; the mixed batch "
+        f"(n = {len(mixed_keys)}) {old['mixed_ms']:.6f} / "
+        f"{new['mixed_ms']:.6f}; rotated over {len(rot)} shards' sub-batches"
+        f" and packs {old['rotated_ms']:.6f} / {new['rotated_ms']:.6f}; "
+        f"cascade_sm90 with 8/16/32 lanes "
+        f"{', '.join(f'{v:.6f}' for v in new['lanes_ms'].values())} "
+        f"(shipped: {cops.LANES}); an empty kernel on its grid (launch "
+        f"floor, a reading) {new['floor_ms']:.6f}; bytes bound "
+        f"{new['bound_ms']:.6f} {card}")
+
+    # Keys at area starts: both kernels exact, the planted fault caught.
+    qa = at_area_starts(q, st, rng)
+    want = cascade_ref(*qa, st)
+    assert want[2].any(), "no key at an area start is covered"
+    assert same(cops.cascade_masks(*qa, st), want)
+    assert same(cops._launch_simt(*qa, st), want)
+    wrong = cops._launch_sm90(*qa, st, planted_fault=True)
+    diff = int((wrong[2] != want[2]).sum())
+    assert diff > 0, "a GLORAN stab at lower_bound passes the check"
+    log(f"cascade_sm90 with lower_bound in the GLORAN stab: {diff} of "
+        f"{n} coverage masks differ at area starts: rejected")
+
+    # n = 8192: a whole lookup batch against shard 0's pack, in request
+    # order, with each lane count (the sub-batch size of ROADMAP A3).
+    keys = batches[1]
+    m = len(keys)
+    big = (to_device(keys, dev), to_device(fold64to32(keys), dev),
+           to_device(np.zeros(m), dev), to_device(np.zeros(m), dev, np.int32))
+    want = cascade_ref(*big, st)
+    assert same(cops._launch_simt(*big, st), want), "cascade at n = 8192"
+    lanes_ms = {}
+    for w in (8, 16, 32):
+        assert same(cops._launch_sm90(*big, st, lanes=w), want), w
+        lanes_ms[w] = time_kernel_ms(lambda: cops._launch_sm90(*big, st,
+                                                               lanes=w))
+    new["n8192_ms"] = lanes_ms[cops.LANES]
+    old["n8192_ms"] = time_kernel_ms(lambda: cops._launch_simt(*big, st))
+    log(f"cascade at n = {m}: both kernels bit-exact; cascade "
+        f"{old['n8192_ms']:.6f} ms, cascade_sm90 with 8/16/32 lanes "
+        f"{', '.join(f'{v:.6f}' for v in lanes_ms.values())} ms {card}")
+    return [old, new]
+
+
+def merge_inputs(rng, na: int, nb: int):
+    """Two sorted u32 runs as compaction merges them: b half drawn from a
+    (cross-run duplicates), half uniform, and the u32 ceiling key."""
+    a = np.sort(rng.integers(0, UNIVERSE, na, dtype=np.uint64))
+    b = np.sort(np.concatenate([
+        a[rng.integers(0, na, nb // 2)],
+        rng.integers(0, UNIVERSE, nb - nb // 2 - 1, dtype=np.uint64),
+        np.array([0xFFFFFFFE], np.uint64)]))
+    return a.astype(np.uint32), b.astype(np.uint32)
+
+
+def merge_cases(rng, small: bool = False) -> list:
+    """The merge sweep: three sizes ((2^12, 2^16), (2^16, 2^19), (2^19,
+    2^22), cut by 2^6 with ``small``) and adversarial runs."""
+    cut = 6 if small else 0
+    cases = [(f"2^{x - cut}x2^{y - cut}", *merge_inputs(
+        rng, 1 << (x - cut), 1 << (y - cut))) for x, y in
+        ((12, 16), (16, 19), (19, 22))]
+    u32 = np.uint32
+    a, b = merge_inputs(rng, 3001, 2047)
+    cases += [
+        ("equal", np.full(3000, 7, u32), np.full(5000, 7, u32)),
+        ("disjoint", np.arange(3000, dtype=u32),
+         np.arange(5000, 9000, dtype=u32)),
+        ("disjoint-reversed", np.arange(5000, 9000, dtype=u32),
+         np.arange(3000, dtype=u32)),
+        ("one", a[:1], b),
+        ("one-reversed", a, b[:1]),
+        ("ragged", a, b),
+        ("u32-edges", np.sort(np.r_[a[:1000], [0, 0, 0xFFFFFFFE]]).astype(u32),
+         np.sort(np.r_[b[:999], [0, 0xFFFFFFFE]]).astype(u32))]
+    return cases
+
+
+def merge_checks(eng, launches, card, rng) -> list[dict]:
+    """The ``merge_rank`` pair and ``merge_path_sm90`` against the plain
+    version at runs of 2^19 and 2^16 (``torch.searchsorted`` as the
+    yardstick); the planted fault; the sweep."""
+    from repro_torch.kernels.merge import ops as mops
+    from repro_torch.kernels.merge.ref import merge_positions_ref
+    from repro_torch.kernels.u32 import to_device, widen
+    dev = eng.device
+
+    def pair(a, b):
+        return (mops.merge_rank(a, b, leq=False),
+                mops.merge_rank(b, a, leq=True))
+
+    def searchsorted(a64, b64):
+        return (torch.searchsorted(b64, a64),
+                torch.searchsorted(a64, b64, right=True))
+
+    ka, kb = merge_inputs(rng, 1 << 19, 1 << 16)
+    a32, b32 = to_device(ka, dev), to_device(kb, dev)
+    a64, b64 = widen(a32), widen(b32)
+    old = check_kernel(
+        "merge_rank", launches["merge_rank"], lambda: pair(a32, b32),
+        lambda: (mops.merge_rank_ref(a32, b32, leq=False),
+                 mops.merge_rank_ref(b32, a32, leq=True)),
+        8 * (len(ka) + len(kb)), card,
+        library=lambda: searchsorted(a64, b64))
+    new = check_kernel(
+        "merge_path_sm90", launches["merge_path_sm90"],
+        lambda: mops.merge_positions(a32, b32),
+        lambda: merge_positions_ref(a32, b32), 8 * (len(ka) + len(kb)),
+        card, library=lambda: searchsorted(a64, b64))
+    new["simt_ms"] = old["ms"]
+    wrong = mops._launch_merge_path(a32, b32, planted_fault=True)
+    diff = int((wrong != merge_positions_ref(a32, b32)).sum())
+    assert diff > 0, "ties broken b-first pass the check"
+    log(f"merge_path_sm90 with ties b-first: {diff} slots differ: rejected")
+
+    fails = []
+    for name, ka, kb in merge_cases(rng):
+        a32, b32 = to_device(ka, dev), to_device(kb, dev)
+        want = merge_positions_ref(a32, b32)
+        pa, pb = pair(a32, b32)
+        ar_a = torch.arange(len(ka), dtype=torch.int32, device=dev)
+        ar_b = torch.arange(len(kb), dtype=torch.int32, device=dev)
+        ok = (same(mops.merge_positions(a32, b32), want),
+              same(torch.cat([ar_a + pa, ar_b + pb]), want))
+        if not all(ok):
+            fails.append((name, ok))
+        times = ""
+        if name.startswith("2^"):
+            a64, b64 = widen(a32), widen(b32)
+            ms = (time_kernel_ms(lambda: mops.merge_positions(a32, b32)),
+                  time_kernel_ms(lambda: pair(a32, b32)),
+                  time_kernel_ms(lambda: searchsorted(a64, b64)))
+            bound = 8 * (len(ka) + len(kb)) / HBM_BYTES_PER_S * 1e3
+            times = (f"; merge_path_sm90 {ms[0]:.6f} ms, merge_rank pair "
+                     f"{ms[1]:.6f} ms, searchsorted pair {ms[2]:.6f} ms, "
+                     f"bound {bound:.6f} ms {card}")
+        log(f"merge sweep {name} ({len(ka)} + {len(kb)}): bit-exact "
+            f"(merge_path_sm90, merge_rank pair) {ok}{times}")
+    assert not fails, f"merge kernels differ from the plain version: {fails}"
+    return [old, new]
+
+
+def kernel_checks(eng, views, batches, main_launches, route_launches,
                   card) -> list[dict]:
     from repro_torch.core.eve import fold64to32
     from repro_torch.kernels.bloom.ops import bloom_probe
     from repro_torch.kernels.bloom.ref import bloom_probe_ref
-    from repro_torch.kernels.cascade.ops import cascade_masks
-    from repro_torch.kernels.cascade.ref import cascade_ref
     from repro_torch.kernels.interval.ops import interval_query
     from repro_torch.kernels.interval.ref import interval_query_ref
-    from repro_torch.kernels.merge.ops import merge_rank
-    from repro_torch.kernels.merge.ref import merge_rank_ref
-    from repro_torch.kernels.u32 import to_device, widen
+    from repro_torch.kernels.u32 import to_device
 
     dev = eng.device
+    # The mixed batch of earlier runs, one shard's worth: half uniform
+    # keys sorted, half deepest-level keys in random order, and the two
+    # u32 edges.
     rng = np.random.default_rng(7)
     sh = eng.shards[0]
     tree = sh.tree
-    n = LOOKUP_BATCH // len(eng.shards)  # one shard's sub-batch
+    n = LOOKUP_BATCH // len(eng.shards)
     qk = np.sort(rng.integers(0, UNIVERSE, n, dtype=np.uint64))
     qk[:n // 2] = tree.levels[-1].keys[rng.integers(
         0, len(tree.levels[-1]), n // 2)]
     qk[0], qk[1] = 0, 0xFFFFFFFE
     qh = fold64to32(qk)
-    records = []
+    other = np.random.default_rng(8)
+    records = cascade_checks(eng, views, batches, qk, main_launches, card,
+                             other)
+    records += merge_checks(eng, main_launches, card, other)
 
     def record(name, launches, kernel, plain, bytes_, library=None):
         records.append(check_kernel(name, launches, kernel, plain, bytes_,
                                     card, library=library))
-
-    # cascade: shard 0's pack, one shard's lookup sub-batch
-    st = views[0].state
-    q = (to_device(qk, dev), to_device(qh, dev),
-         to_device(np.zeros(n), dev), to_device(np.zeros(n), dev, np.int32))
-    cnt = st.key_cnt.tolist()
-    probes = sum(bloom_probe_counts(
-        qh, lvl.bloom.words, lvl.bloom.m_bits, lvl.bloom.seeds)
-        for lvl in tree.levels if lvl is not None and len(lvl))
-    gl_cnt = st.gl_cnt.tolist()
-    sectors = (probes + sum(min(search_sectors(c, n) + n, c // 8 + 1)
-                            for c in cnt)
-               + sum(min(search_sectors(c, n), c // 8 + 1) + 3 * n
-                     for c in gl_cnt))
-    record("cascade", main_launches["cascade"],
-           lambda: cascade_masks(*q, st), lambda: cascade_ref(*q, st),
-           16 * n + (12 + 4 * st.L) * n + SECTOR * sectors)
-
-    # merge rank: runs of 2^19 and 2^16, ties and the u32 edge included
-    ka = np.sort(rng.integers(0, UNIVERSE, 1 << 19, dtype=np.uint64))
-    kb = np.sort(np.concatenate([
-        ka[rng.integers(0, len(ka), 1 << 15)],
-        rng.integers(0, UNIVERSE, (1 << 15) - 1, dtype=np.uint64),
-        np.array([0xFFFFFFFE], np.uint64)]))
-    a32, b32 = to_device(ka, dev), to_device(kb, dev)
-    a64, b64 = widen(a32), widen(b32)
-    record("merge_rank", main_launches["merge_rank"],
-           lambda: (merge_rank(a32, b32, leq=False),
-                    merge_rank(b32, a32, leq=True)),
-           lambda: (merge_rank_ref(a32, b32, leq=False),
-                    merge_rank_ref(b32, a32, leq=True)),
-           8 * (len(ka) + len(kb)),
-           library=lambda: (torch.searchsorted(b64, a64),
-                            torch.searchsorted(a64, b64, right=True)))
 
     # bloom: the deepest level's filter (~400 K entries)
     lvl = tree.levels[-1]

@@ -1,9 +1,12 @@
-"""Wrapper of the merge-rank kernel (``csrc/merge_rank.cu``).
+"""Wrappers of the merge kernels (``csrc/merge_path_sm90.cu`` and
+``csrc/merge_rank.cu``).
 
-Replaces ``src/repro/kernels/merge/kernel.py::merge_rank_pallas``.  A
-CPU tensor takes the plain version; a CUDA tensor launches the kernel,
-one launch over the whole run, or raises.  ``merge_ranks`` turns two
-ranks into a two-way merge round's output positions.
+Replace ``src/repro/kernels/merge/kernel.py::merge_rank_pallas`` and
+the two calls of it in the JAX package's ``merge_ranks``.  A CPU tensor
+takes the plain version; a CUDA tensor launches a kernel or raises.
+``merge_positions`` places both runs of a two-way merge round in one
+``merge_path_sm90`` launch; ``merge_rank`` ranks unsorted queries in
+one sorted run (``merge_rank``, one thread a query).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 from ...obs import span
 from .. import native
 from ..u32 import to_device, to_numpy
-from .ref import merge_rank_ref
+from .ref import merge_positions_ref, merge_rank_ref
 
 
 def merge_rank(q: torch.Tensor, run: torch.Tensor, *,
@@ -25,10 +28,10 @@ def merge_rank(q: torch.Tensor, run: torch.Tensor, *,
     left for ``leq=False``, right for ``leq=True``)."""
     if q.device.type == "cpu":
         return merge_rank_ref(q, run, leq=leq)
-    return _launch(q, run, leq)
+    return _launch_rank(q, run, leq)
 
 
-def _launch(q, run, leq) -> torch.Tensor:
+def _launch_rank(q, run, leq) -> torch.Tensor:
     dev = native.require_cuda("merge_rank", q, run)
     n = q.numel()
     out = torch.empty(n, dtype=torch.int32, device=dev)
@@ -44,17 +47,43 @@ def _launch(q, run, leq) -> torch.Tensor:
     return out
 
 
+def merge_positions(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int32 (na + nb,) merged-output slots of two sorted u32 runs: a's
+    first, then b's; ties across runs place a-entries first."""
+    if a.device.type == "cpu":
+        return merge_positions_ref(a, b)
+    return _launch_merge_path(a, b)
+
+
+def _launch_merge_path(a, b, *, planted_fault: bool = False):
+    """``merge_path_sm90``; ``planted_fault`` breaks ties b-first (a
+    wrong kernel, for the card's checks).  Two empty runs launch
+    nothing."""
+    dev = native.require_cuda("merge_path_sm90", a, b)
+    out = torch.empty(a.numel() + b.numel(), dtype=torch.int32, device=dev)
+    if not out.numel():
+        return out
+    fn = native.library("merge_path_sm90").merge_path_sm90_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(native.ptr(a), a.numel(), native.ptr(b), b.numel(),
+             native.ptr(out), int(planted_fault), native.stream(dev))
+    native.check("merge_path_sm90", err)
+    native.count_launch("merge_path_sm90")
+    return out
+
+
 def merge_ranks(ka: np.ndarray, kb: np.ndarray, device):
     """Merged-output positions of two key-sorted u32 runs on ``device``.
 
     Returns ``(pa, pb)`` int64 numpy arrays: ``pa[i]`` is the slot of
     ``ka[i]`` in the merged order, ``pb`` likewise; ties across runs
     place a-entries first — bit-exact with the host searchsorted pair in
-    ``lsm.merge.merge_two``."""
+    ``lsm.merge.merge_two``.  One launch and one copy back."""
     with span("kernel.merge", n=len(ka) + len(kb)):
-        a = to_device(ka, device)
-        b = to_device(kb, device)
-        ra = to_numpy(merge_rank(a, b, leq=False), np.int32)
-        rb = to_numpy(merge_rank(b, a, leq=True), np.int32)
-    return (np.arange(len(ka), dtype=np.int64) + ra,
-            np.arange(len(kb), dtype=np.int64) + rb)
+        out = to_numpy(merge_positions(to_device(ka, device),
+                                       to_device(kb, device)), np.int32)
+    pos = out.astype(np.int64)
+    return pos[:len(ka)], pos[len(ka):]

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the merge-rank kernel."""
+"""Plain PyTorch versions of the merge kernels."""
 
 from __future__ import annotations
 
@@ -13,3 +13,13 @@ def merge_rank_ref(q: torch.Tensor, run: torch.Tensor, *,
     or at-or-below it (``leq=True``); u32 in int32 storage -> int32."""
     return torch.searchsorted(widen(run), widen(q),
                               right=leq).to(torch.int32)
+
+
+def merge_positions_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merged-output slots of two sorted u32 runs: int32 (na + nb,), a's
+    slots first, then b's; ties across runs place a-entries first."""
+    pa = torch.arange(a.numel(), dtype=torch.int32, device=a.device) \
+        + merge_rank_ref(a, b, leq=False)
+    pb = torch.arange(b.numel(), dtype=torch.int32, device=b.device) \
+        + merge_rank_ref(b, a, leq=True)
+    return torch.cat([pa, pb])
