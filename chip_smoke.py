@@ -7,8 +7,8 @@ and this checkout; without them it exits non-zero before printing any
 result.  Phases, each of which fails the run on any error:
 
 1. Environment: the card's name and power limit, torch and CUDA
-   versions, and the seconds the ten kernels took to build (one nvcc
-   per source, all started together).
+   versions, and the seconds the twelve kernels took to build (one
+   nvcc per source, all started together).
 2. The store's slice: an 8-shard hash-partitioned GLORAN
    ``Engine`` on ``cuda`` with the paper's default ``LSMConfig`` loads
    3 M uniform keys in [0, 2^28) with 1% range deletes (82 deletes of
@@ -24,8 +24,12 @@ result.  Phases, each of which fails the run on any error:
    continue until every shard's index flushes a level again, and the
    lookups run once more against that state, the profiler reading the
    device's busy time over a few of them.
-3. The per-level route: the same lookups with the cascade off (bloom
-   and interval kernels) must return the same results.
+3. The per-level route: the same lookups with the cascade off must
+   return the same results, every per-level launch a ``bloom_sm90`` or
+   ``interval_sm90`` one (none of the first ``bloom`` or ``interval``),
+   as many as the ``KernelCounters`` count gated calls; then the same
+   lookups with ``bloom.cu`` and ``interval.cu`` in their place, in
+   turns with the new ones (a reading of what shows end to end).
 4. Each store kernel against its plain PyTorch version on the card, at
    the shapes the slice gives it, bit-exact, with its median time, the
    plain version's time, its bound and, for the merge kernels, the
@@ -44,8 +48,17 @@ result.  Phases, each of which fails the run on any error:
    planted fault) must fail, then a sweep: (2^12, 2^16), (2^16, 2^19),
    (2^19, 2^22), all keys equal, disjoint runs both ways, a run of one
    both ways, ragged lengths, and 0 and 0xFFFFFFFE present.  Bloom
-   and interval: one shard's sub-batch against the deepest level's
-   filter and the largest DR-tree level.
+   and interval: both generations (and the new kernels' other
+   variants) bit-exact and timed in turns on the route's sub-batches
+   captured from a per-level ``get_batch``, on n = 1024 and 8192 keys
+   against the deepest level's filter and a 3 M-key filter (10 bits a
+   key, 6 hashes), and on n = 1024 to 8192 stabs against the cell's
+   largest DR-tree level and a level of 2^20 areas, beside an empty
+   kernel on the shipped kernel's grid; ``bloom_sm90`` probing H - 1
+   seeds must fail on absent keys and ``interval_sm90`` searching
+   lower_bound at area starts (planted faults); then a sweep of edge
+   cases (``bloom_cases``, ``interval_cases``) through every kernel.
+   Empty kernels on ``merge_path_sm90``'s grid give its floor too.
 5. The model stack's slice: zamba2-7b at full width and depth (81
    layers, d_model 3584, random weights from ``--seed``).  In f32, a
    prefill of 2 x 128 tokens must launch the CUDA-core SSD kernel 81
@@ -131,7 +144,14 @@ KERNEL_SOURCES = {
                      "src/repro/kernels/cascade/kernel.py:125"),
     "merge_path_sm90": ("src/repro_torch/csrc/merge_path_sm90.cu",
                         "src/repro/kernels/merge/kernel.py:53"),
+    "bloom_sm90": ("src/repro_torch/csrc/bloom_sm90.cu",
+                   "src/repro/kernels/bloom/kernel.py:52"),
+    "interval_sm90": ("src/repro_torch/csrc/interval_sm90.cu",
+                      "src/repro/kernels/interval/kernel.py:61"),
 }
+FILTER_KEYS = 3_000_000  # the 3 M-key filter of ROADMAP A3's shard
+BITS_PER_KEY, HASHES = 10, 6  # the paper's filter (LSMConfig's defaults)
+BIG_LEVEL = 1 << 20  # areas of the large DR-tree level
 
 
 def log(msg: str) -> None:
@@ -386,7 +406,7 @@ def device_busy(eng, batches) -> str:
 
 
 def store_phases(card: str) -> list[dict]:
-    """Phases 2-4: the store's slice, its per-level route and its four
+    """Phases 2-4: the store's slice, its per-level route and its eight
     kernels against their plain versions; returns their records."""
     from repro_torch.kernels import native
 
@@ -467,17 +487,57 @@ def store_phases(card: str) -> list[dict]:
     for (f0, v0), (f1, v1) in zip(results, results2):
         assert np.array_equal(f0, f1) and np.array_equal(v0, v1)
     assert kc4.cascade_calls == kc3.cascade_calls
-    assert kc4.bloom_calls > kc3.bloom_calls, kc4
-    assert kc4.interval_calls > kc3.interval_calls, kc4
-    assert route_launches["bloom"] > 0 and route_launches["interval"] > 0
+    # Every per-level launch is a Hopper kernel, one a gated call.
+    bloom_calls = kc4.bloom_calls - kc3.bloom_calls
+    interval_calls = kc4.interval_calls - kc3.interval_calls
+    assert bloom_calls > 0 and interval_calls > 0, kc4
+    assert route_launches["bloom_sm90"] == bloom_calls, route_launches
+    assert route_launches["interval_sm90"] == interval_calls, route_launches
+    others = {k: v for k, v in route_launches.items()
+              if v and k not in ("bloom_sm90", "interval_sm90")}
+    assert not others, f"per-level route launched {others}"
     report_lookups("per-level route (results equal)", lat2, card)
-    log(f"per-level launches {json.dumps(route_launches)}")
+    log(f"per-level launches {json.dumps(route_launches)}, equal to the "
+        f"gated calls (bloom {bloom_calls}, interval {interval_calls})")
+    route_ab(eng, batches, results, card)
 
     # 4. each kernel against its plain version at the path's shapes
     records = kernel_checks(eng, views, batches, main_launches,
                             route_launches, card)
     eng.close()
     return records
+
+
+def route_ab(eng, batches, results, card) -> None:
+    """The per-level route's lookups with the first bloom and interval
+    kernels (``bloom.cu``, ``interval.cu``) in place of the new ones, in turns (old, new, new, old; the
+    same results each time): a reading of how much of the kernels' gain
+    shows end to end, outside the counted window."""
+    from repro_torch.engine import executor
+    from repro_torch.kernels.bloom import ops as bops
+    from repro_torch.kernels.interval import ops as iops
+    real = executor.bloom_probe, executor.interval_query
+
+    def old_bloom(keys32, words, *, m_bits, seeds):
+        return bops._launch_simt(keys32, words, m_bits, seeds)
+
+    walls = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        if which == "old":
+            executor.bloom_probe = old_bloom
+            executor.interval_query = iops._launch_simt
+        try:
+            got, lat = lookups(eng, batches)
+        finally:
+            executor.bloom_probe, executor.interval_query = real
+        assert all(np.array_equal(f0, f1) and np.array_equal(v0, v1)
+                   for (f0, v0), (f1, v1) in zip(results, got)), which
+        walls[which].append(sum(lat))
+    keys = len(batches) * LOOKUP_BATCH
+    log("per-level route, bloom + interval / the _sm90 kernels, in turns: "
+        + ", ".join(f"{w}: " + " ".join(f"{x:.3f} s = {keys / x:.1f} ops/s"
+                                        for x in walls[w])
+                    for w in ("old", "new")) + f" (results equal) {card}")
 
 
 def check_kernel(name, launches, kernel, plain, bytes_, card, *, ops=0,
@@ -753,6 +813,10 @@ def merge_checks(eng, launches, card, rng) -> list[dict]:
         lambda: merge_positions_ref(a32, b32), 8 * (len(ka) + len(kb)),
         card, library=lambda: searchsorted(a64, b64))
     new["simt_ms"] = old["ms"]
+    new["floor_ms"] = time_kernel_ms(
+        lambda: mops._launch_floor(len(ka), len(kb), dev))
+    log(f"merge_path_sm90: an empty kernel on its grid (launch floor, a "
+        f"reading) {new['floor_ms']:.6f} ms {card}")
     wrong = mops._launch_merge_path(a32, b32, planted_fault=True)
     diff = int((wrong != merge_positions_ref(a32, b32)).sum())
     assert diff > 0, "ties broken b-first pass the check"
@@ -787,14 +851,6 @@ def merge_checks(eng, launches, card, rng) -> list[dict]:
 
 def kernel_checks(eng, views, batches, main_launches, route_launches,
                   card) -> list[dict]:
-    from repro_torch.core.eve import fold64to32
-    from repro_torch.kernels.bloom.ops import bloom_probe
-    from repro_torch.kernels.bloom.ref import bloom_probe_ref
-    from repro_torch.kernels.interval.ops import interval_query
-    from repro_torch.kernels.interval.ref import interval_query_ref
-    from repro_torch.kernels.u32 import to_device
-
-    dev = eng.device
     # The mixed batch of earlier runs, one shard's worth: half uniform
     # keys sorted, half deepest-level keys in random order, and the two
     # u32 edges.
@@ -806,42 +862,414 @@ def kernel_checks(eng, views, batches, main_launches, route_launches,
     qk[:n // 2] = tree.levels[-1].keys[rng.integers(
         0, len(tree.levels[-1]), n // 2)]
     qk[0], qk[1] = 0, 0xFFFFFFFE
-    qh = fold64to32(qk)
     other = np.random.default_rng(8)
     records = cascade_checks(eng, views, batches, qk, main_launches, card,
                              other)
     records += merge_checks(eng, main_launches, card, other)
-
-    def record(name, launches, kernel, plain, bytes_, library=None):
-        records.append(check_kernel(name, launches, kernel, plain, bytes_,
-                                    card, library=library))
-
-    # bloom: the deepest level's filter (~400 K entries)
-    lvl = tree.levels[-1]
-    bb = lvl.bloom
-    words = sh.registry.bloom_words(lvl)
-    kq = to_device(qh, dev)
-    record("bloom", route_launches["bloom"],
-           lambda: bloom_probe(kq, words, m_bits=bb.m_bits, seeds=bb.seeds),
-           lambda: bloom_probe_ref(kq, words, m_bits=bb.m_bits,
-                                   seeds=bb.seeds),
-           8 * n + SECTOR * bloom_probe_counts(qh, bb.words, bb.m_bits,
-                                               bb.seeds))
-
-    # interval: shard 0's DR-tree level, keys with seqs
-    live = tree.gloran.level_views()
-    g = max(live, key=len)
-    lo, hi, smin, smax = sh.registry.gl_columns(g, live)
-    gk = qk.copy()
-    gk[:n // 4] = g.areas.lo[rng.integers(0, len(g.areas), n // 4)]
-    sq = rng.integers(0, tree.seq, n, dtype=np.uint64)
-    ik, isq = to_device(gk, dev), to_device(sq, dev)
-    record("interval", route_launches["interval"],
-           lambda: interval_query(ik, isq, lo, hi, smin, smax),
-           lambda: interval_query_ref(ik, isq, lo, hi, smin, smax),
-           12 * n + SECTOR * (min(search_sectors(len(g.areas), n),
-                                  len(g.areas) // 8 + 1) + 3 * n))
+    records += filter_checks(eng, batches, qk, route_launches, card, other)
     return records
+
+
+# ----------------------------------------------- bloom and interval
+def disjoint_level(rng, m: int, pad: int | None = None):
+    """m key-disjoint areas sorted by lo as u32 columns (lo, hi, smin,
+    smax): lo distinct in [0, 2^32 - 2), hi in (lo, next lo], seq windows
+    [smin, smax) of width 0 to 2^16 - 1 in [0, 2^20 + 2^16); padded to
+    ``pad`` slots with the registry's never-covering sentinels (lo = hi =
+    0xFFFFFFFF, smin = smax = 0)."""
+    u = np.unique(rng.integers(0, 0xFFFFFFFE, 2 * m + 64, dtype=np.uint64))
+    assert len(u) >= m
+    lo = np.sort(rng.permutation(u)[:m])
+    gaps = np.diff(np.r_[lo, np.uint64(0xFFFFFFFF)])
+    hi = lo + np.minimum(rng.integers(1, 1 << 12, m, dtype=np.uint64), gaps)
+    smin = rng.integers(0, 1 << 20, m, dtype=np.uint64)
+    smax = smin + rng.integers(0, 1 << 16, m, dtype=np.uint64)
+    pad = m if pad is None else pad
+    fill = (0xFFFFFFFF, 0xFFFFFFFF, 0, 0)
+    return tuple(np.r_[c, np.full(pad - m, f, np.uint64)].astype(np.uint32)
+                 for c, f in zip((lo, hi, smin, smax), fill))
+
+
+def stab_queries(rng, cols, n: int):
+    """n (key, seq) stabs of a level given as host u32 columns: a quarter
+    at area starts with the area's smin as seq (covered where the window
+    is not empty), a quarter at an area's last key with a seq at its
+    smax (not covered), the rest uniform keys and seqs."""
+    lo, hi, smin, smax = (c.astype(np.uint64) for c in cols)
+    real = np.flatnonzero(lo < 0xFFFFFFFF)
+    keys = rng.integers(0, 0xFFFFFFFF, n, dtype=np.uint64)
+    seqs = rng.integers(0, int(smax.max(initial=0)) + 2, n, dtype=np.uint64)
+    if len(real):
+        q = n // 4
+        a = real[rng.integers(0, len(real), q)]
+        keys[:q], seqs[:q] = lo[a], smin[a]
+        b = real[rng.integers(0, len(real), q)]
+        keys[q:2 * q], seqs[q:2 * q] = hi[b] - np.uint64(1), smax[b]
+    order = rng.permutation(n)
+    return keys[order].astype(np.uint32), seqs[order].astype(np.uint32)
+
+
+def bloom_cases(rng) -> list:
+    """The Bloom sweep: (name, folded u32 keys, u32 words, m_bits, u32
+    seeds) with n = 1 and ragged n, H = 0, 9 and 32, bit counts that are
+    not multiples of 32, the smallest filter, and the u32 edge keys."""
+    from repro_torch.core.eve import BloomBits, fold64to32
+    cases = []
+    for name, m_bits, hashes, n in (
+            ("n=1", 70_001, 6, 1), ("ragged n=1027", 70_001, 6, 1027),
+            ("H=0", 4096, 0, 100), ("H=9", 12_345, 9, 333),
+            ("H=32", 100_003, 32, 1000), ("m_bits=12280", 12_280, 6, 500),
+            ("m_bits=64", 64, 3, 50), ("ragged n=8193", 1 << 20, 6, 8193),
+            ("u32 edges", 70_001, 6, 0)):
+        bb = BloomBits(m_bits, hashes, seed=len(cases) + 1)
+        items = rng.integers(0, 1 << 40, max(8, bb.m_bits // 10),
+                             dtype=np.uint64)
+        bb.insert(items)
+        keys = fold64to32(np.r_[items[:n // 2], rng.integers(
+            0, 1 << 40, n - n // 2, dtype=np.uint64)])
+        if not n:
+            keys = np.array([0, 0xFFFFFFFE, 0xFFFFFFFF, 1], np.uint32)
+        cases.append((name, keys.astype(np.uint32), bb.words, bb.m_bits,
+                      np.asarray(bb.seeds, np.uint32)))
+    return cases
+
+
+def interval_cases(rng) -> list:
+    """The interval sweep: (name, u32 keys, u32 seqs, lo, hi, smin, smax)
+    with an empty level, one area probed at and around its lo, hi
+    (exclusive), smin and smax, the registry's pow2-padded columns with
+    clamped areas, areas at both u32 ends, n = 1, ragged n, levels of
+    8192 (staged whole), 8193 and 3 x 8192 + 5 areas (a strided
+    directory) and an unpadded level."""
+    from types import SimpleNamespace
+    from repro_torch.engine.registry import clamp_level_u32
+    u32 = np.uint32
+    cases = []
+    empty = (np.zeros(0, u32),) * 4
+    keys = rng.integers(0, 1 << 32, 50, dtype=np.uint64).astype(u32)
+    cases.append(("empty level", keys, keys ^ u32(7), *empty))
+    one = tuple(np.array([v], u32) for v in (100, 200, 10, 20))
+    k, q = np.meshgrid(np.array([0, 99, 100, 150, 199, 200, 0xFFFFFFFE], u32),
+                       np.array([0, 9, 10, 19, 20, 0xFFFFFFFE], u32))
+    cases.append(("one area", k.ravel(), q.ravel(), *one))
+    lo, hi, smin, smax = (c.astype(np.uint64) for c in disjoint_level(rng, 40))
+    lo[-2:] = [0xFFFFFFF0, 1 << 33]  # clamp_level_u32 keeps, then drops
+    hi[-2:] = [1 << 34, 1 << 35]
+    smin[:2] = [1 << 33, 0]
+    smax[1] = 1 << 36
+    cols = clamp_level_u32(SimpleNamespace(lo=lo, hi=hi, smin=smin,
+                                           smax=smax))[:4]
+    k, q = stab_queries(rng, cols, 600)
+    cases.append(("pow2-padded, clamped", k, q, *cols))
+    edge = (np.array([0, 5000, 0xFFFFFF00], u32),
+            np.array([10, 6000, 0xFFFFFFFF], u32),
+            np.array([0, 3, 0], u32), np.array([0xFFFFFFFF, 9, 0xFFFFFFFF],
+                                               u32))
+    k = np.array([0, 9, 10, 0xFFFFFF00, 0xFFFFFFFE, 0xFFFFFFFF, 5999], u32)
+    cases.append(("u32 ends", k, np.array([0, 0, 0, 0, 0xFFFFFFFE, 5, 3],
+                                          u32), *edge))
+    for name, m, pad, n in (("n=1", 300, 512, 1), ("ragged n=1027", 700, 1024,
+                                                   1027),
+                            ("8192 areas", 8000, 8192, 2048),
+                            ("8193 areas", 8193, None, 999),
+                            ("3 x 8192 + 5 areas", 3 * 8192 + 5, None, 777),
+                            ("10000 areas, unpadded", 10_000, None, 513)):
+        cols = disjoint_level(rng, m, pad)
+        cases.append((name, *stab_queries(rng, cols, n), *cols))
+    return cases
+
+
+def capture_route(eng, batch: np.ndarray):
+    """The per-level route's kernel inputs for one lookup batch, as the
+    engine's executors hand them over: ([(keys32, words, m_bits, seeds)],
+    [(keys32, seqs32, lo, hi, smin, smax)]), all on the card."""
+    from repro_torch.engine import executor
+    blooms, stabs = [], []
+    real_b, real_i = executor.bloom_probe, executor.interval_query
+
+    def spy_bloom(keys32, words, *, m_bits, seeds):
+        blooms.append((keys32, words, int(m_bits),
+                       tuple(int(x) for x in seeds)))
+        return real_b(keys32, words, m_bits=m_bits, seeds=seeds)
+
+    def spy_interval(*args):
+        stabs.append(args)
+        return real_i(*args)
+
+    cascade_on = eng.config.use_cascade_kernel
+    executor.bloom_probe, executor.interval_query = spy_bloom, spy_interval
+    eng.config.use_cascade_kernel = False
+    try:
+        eng.get_batch(batch)
+    finally:
+        executor.bloom_probe, executor.interval_query = real_b, real_i
+        eng.config.use_cascade_kernel = cascade_on
+    return blooms, stabs
+
+
+def in_turns(old, new, others: dict) -> dict:
+    """Device ms on one input of the first kernel and the shipped one in
+    turns (old, new, the other variants once each, new, old; each
+    generation the mean of its two readings)."""
+    t = {"old": [time_kernel_ms(old)], "new": [time_kernel_ms(new)]}
+    t.update({k: time_kernel_ms(fn) for k, fn in others.items()})
+    t["new"].append(time_kernel_ms(new))
+    t["old"].append(time_kernel_ms(old))
+    t["old"], t["new"] = (statistics.fmean(t[k]) for k in ("old", "new"))
+    return t
+
+
+def rotate(fn, inputs: list):
+    """A call of fn that takes the next of ``inputs`` each time."""
+    turn = itertools.count()
+    return lambda: fn(*inputs[next(turn) % len(inputs)])
+
+
+def bloom_checks(eng, qk, launches, card, rng, blooms) -> dict:
+    """``bloom`` and ``bloom_sm90`` (each variant) against the plain
+    version and timed in turns on the route's captured sub-batches, on
+    n = 1024 and 8192 keys against the deepest level's filter and a
+    3 M-key filter; the planted fault; the sweep."""
+    from repro_torch.core.eve import BloomBits, fold64to32
+    from repro_torch.kernels.bloom import ops as bops
+    from repro_torch.kernels.bloom.ops import bloom_probe
+    from repro_torch.kernels.bloom.ref import bloom_probe_ref
+    from repro_torch.kernels.u32 import to_device
+    dev = eng.device
+    sh = eng.shards[0]
+    lvl = sh.tree.levels[-1]
+    t0 = time.perf_counter()
+    big = BloomBits(FILTER_KEYS * BITS_PER_KEY, HASHES, seed=17)
+    present = rng.integers(0, 1 << 62, FILTER_KEYS, dtype=np.uint64)
+    big.insert(present)
+    log(f"a {FILTER_KEYS}-key filter ({big.m_bits} bits, {HASHES} hashes) "
+        f"built on the host in {time.perf_counter() - t0:.3f} s")
+    filters = {"deepest": (lvl.bloom, sh.registry.bloom_words(lvl),
+                           lvl.keys),
+               "3M": (big, to_device(big.words, dev), present)}
+
+    def queries(keys, n):
+        half = keys[rng.integers(0, len(keys), n // 2)]
+        return fold64to32(np.r_[half, rng.integers(
+            0, 1 << 62, n - n // 2, dtype=np.uint64)])
+
+    inputs = {}  # name: (host keys, filter, device args)
+    for f, (bb, words, keys) in filters.items():
+        for n in (1024, 8192):
+            qh = fold64to32(qk) if (f, n) == ("deepest", 1024) \
+                else queries(keys, n)
+            inputs[f"{f} n={n}"] = (qh, bb, (to_device(qh, dev), words,
+                                             bb.m_bits, bb.seeds))
+    variants = {v: (lambda *a, v=v: bops._launch_sm90(*a, variant=v))
+                for v in bops.VARIANTS}
+    variants["thread, blocks of 256"] = \
+        lambda *a: bops._launch_sm90(*a, variant="thread", threads=256)
+
+    def shipped(k, w, m, s):
+        return bloom_probe(k, w, m_bits=m, seeds=s)
+
+    def plain(k, w, m, s):
+        return bloom_probe_ref(k, w, m_bits=m, seeds=s)
+
+    for x in blooms:  # every captured sub-batch, every kernel exact
+        want = plain(*x)
+        assert same(bops._launch_simt(*x), want)
+        assert all(same(fn(*x), want) for fn in variants.values())
+    ns = sorted(x[0].numel() for x in blooms)
+    times = {"route": in_turns(rotate(bops._launch_simt, blooms),
+                               rotate(shipped, blooms),
+                               {v: rotate(fn, blooms)
+                                for v, fn in variants.items()})}
+    log(f"bloom, the route's {len(blooms)} captured sub-batches (n "
+        f"{ns[0]}..{ns[-1]}, median {ns[len(ns) // 2]}), rotated: "
+        f"{json.dumps(times['route'])} ms {card}")
+    for name, (qh, bb, x) in inputs.items():
+        want = plain(*x)
+        assert same(bops._launch_simt(*x), want), name
+        for v, fn in variants.items():
+            assert same(fn(*x), want), (name, v)
+        n = len(qh)
+        times[name] = in_turns(lambda: bops._launch_simt(*x),
+                               lambda: shipped(*x),
+                               {v: (lambda fn=fn: fn(*x))
+                                for v, fn in variants.items()})
+        times[name]["floor"] = time_kernel_ms(
+            lambda: bops._launch_floor(n, dev))
+        times[name]["bound"] = (8 * n + SECTOR * bloom_probe_counts(
+            qh, bb.words, bb.m_bits, bb.seeds)) / HBM_BYTES_PER_S * 1e3
+        log(f"bloom, {name} (H = {len(bb.seeds)}, {bb.m_bits} bits): "
+            f"every variant bit-exact; {json.dumps(times[name])} ms {card}")
+
+    # The headline input of earlier runs: one shard's mixed batch.
+    qh, bb, x = inputs["deepest n=1024"]
+    by = 8 * len(qh) + SECTOR * bloom_probe_counts(qh, bb.words, bb.m_bits,
+                                                   bb.seeds)
+    old = check_kernel("bloom", launches["bloom"],
+                       lambda: bops._launch_simt(*x), lambda: plain(*x), by,
+                       card)
+    new = check_kernel("bloom_sm90", launches["bloom_sm90"],
+                       lambda: shipped(*x), lambda: plain(*x), by, card)
+    new["simt_ms"] = old["ms"]
+    new["floor_ms"] = times["deepest n=1024"]["floor"]
+    new["inputs_ms"] = times
+
+    # Planted fault: H - 1 seeds pass absent keys the filter rejects.
+    qa = to_device(fold64to32(rng.integers(0, 1 << 62, 8192,
+                                           dtype=np.uint64)), dev)
+    x = (qa, filters["3M"][1], big.m_bits, big.seeds)
+    want = plain(*x)
+    for v in bops.VARIANTS:
+        diff = int((bops._launch_sm90(*x, variant=v, planted_fault=True)
+                    != want).sum())
+        assert diff > 0, f"bloom_sm90 ({v}) with H - 1 seeds passes"
+        log(f"bloom_sm90 ({v}) probing H - 1 seeds: {diff} of 8192 absent "
+            f"keys' verdicts differ: rejected")
+
+    fails = []
+    for name, k, w, m_bits, seeds in bloom_cases(rng):
+        x = (to_device(k, dev), to_device(w, dev), m_bits, seeds)
+        want = plain(*x)
+        ok = {"bloom": same(bops._launch_simt(*x), want),
+              "public": same(shipped(*x), want)}
+        ok.update({v: same(fn(*x), want) for v, fn in variants.items()})
+        if not all(ok.values()):
+            fails.append((name, ok))
+        log(f"bloom sweep {name} (n = {len(k)}, H = {len(seeds)}, "
+            f"m_bits = {m_bits}): bit-exact {ok}")
+    assert not fails, f"bloom kernels differ from the plain version: {fails}"
+    return {"old": old, "new": new}
+
+
+def interval_checks(eng, launches, card, rng, stabs) -> dict:
+    """``interval`` and ``interval_sm90`` (each design) against the plain
+    version and timed in turns on the route's captured sub-batches, on
+    n = 1024, 4096, 6144 and 8192 stabs against the cell's largest
+    DR-tree level and a level of 2^20 areas; the planted fault; the
+    sweep."""
+    from repro_torch.kernels.interval import ops as iops
+    from repro_torch.kernels.interval.ops import interval_query
+    from repro_torch.kernels.interval.ref import interval_query_ref
+    from repro_torch.kernels.u32 import to_device, to_numpy
+    dev = eng.device
+    s, g = max(((s, g) for s, sh in enumerate(eng.shards)
+                for g in sh.tree.gloran.level_views()),
+               key=lambda x: len(x[1]))
+    cell = eng.shards[s].registry.gl_columns(
+        g, eng.shards[s].tree.gloran.level_views())
+    big = disjoint_level(rng, BIG_LEVEL)
+    levels = {f"cell ({len(g)} areas)": (cell, [to_numpy(c) for c in cell]),
+              "2^20 areas": (tuple(to_device(c, dev) for c in big), big)}
+    # The shipped pair, then the rest of the design space timed beside
+    # it: 16 lanes; one thread a query over a directory of 1 (a plain
+    # search), 64, 128, 256 and 512 entries in SM-spreading blocks, of
+    # 256 in blocks of 128, and the whole column in blocks of 256.
+    variants = {f"group {w}": (lambda *a, w=w: iops._launch_sm90(
+        *a, design="group", lanes=w)) for w in (32, 16)}
+    for e, t in ((256, 256), (1, 0), (64, 0), (128, 0), (256, 0), (512, 0),
+                 (256, 128), (iops.DIR_MAX, 256)):
+        name = "search" if e == 1 else f"directory {e}" + (
+            f", blocks of {t}" if t else "")
+        variants[name] = (lambda *a, e=e, t=t: iops._launch_sm90(
+            *a, design="directory", entries=e, threads=t))
+
+    for x in stabs:
+        want = interval_query_ref(*x)
+        assert same(iops._launch_simt(*x), want)
+        assert all(same(fn(*x), want) for fn in variants.values())
+    ns = sorted(x[0].numel() for x in stabs)
+    times = {"route": in_turns(rotate(iops._launch_simt, stabs),
+                               rotate(interval_query, stabs),
+                               {v: rotate(fn, stabs)
+                                for v, fn in variants.items()})}
+    log(f"interval, the route's {len(stabs)} captured sub-batches (n "
+        f"{ns[0]}..{ns[-1]}, areas {sorted({x[2].numel() for x in stabs})})"
+        f", rotated: {json.dumps(times['route'])} ms {card}")
+    inputs = {}
+    for lname, (cols, host) in levels.items():
+        m = cols[0].numel()
+        for n in (1024, 4096, 6144, 8192):
+            k, q = stab_queries(rng, host, n)
+            x = (to_device(k, dev), to_device(q, dev), *cols)
+            want = interval_query_ref(*x)
+            assert same(iops._launch_simt(*x), want), lname
+            for v, fn in variants.items():
+                assert same(fn(*x), want), (lname, n, v)
+            name = f"{lname} n={n}"
+            inputs[name] = x
+            times[name] = in_turns(lambda: iops._launch_simt(*x),
+                                   lambda: interval_query(*x),
+                                   {v: (lambda fn=fn: fn(*x))
+                                    for v, fn in variants.items()})
+            times[name]["floor"] = time_kernel_ms(lambda: iops._launch_floor(
+                n, dev, **iops.VARIANTS[iops.kernel_for(n, m)]))
+            by = 12 * n + SECTOR * (min(search_sectors(m, n), m // 8 + 1)
+                                    + 3 * n)
+            times[name]["bound"] = by / HBM_BYTES_PER_S * 1e3
+            log(f"interval, {name} (padded to {m}, {int(want.sum())} "
+                f"covered, shipped variant {iops.kernel_for(n, m)}): every "
+                f"design bit-exact; {json.dumps(times[name])} ms {card}")
+
+    name = next(iter(inputs))  # the cell's level at n = 1024
+    x = inputs[name]
+    n, m = x[0].numel(), x[2].numel()
+    by = 12 * n + SECTOR * (min(search_sectors(m, n), m // 8 + 1) + 3 * n)
+    old = check_kernel("interval", launches["interval"],
+                       lambda: iops._launch_simt(*x),
+                       lambda: interval_query_ref(*x), by, card)
+    new = check_kernel("interval_sm90", launches["interval_sm90"],
+                       lambda: interval_query(*x),
+                       lambda: interval_query_ref(*x), by, card)
+    new["simt_ms"] = old["ms"]
+    new["floor_ms"] = times[name]["floor"]
+    new["inputs_ms"] = times
+
+    # Planted fault: lower_bound misses keys at area starts.
+    lo_h = to_numpy(x[2])
+    real = np.flatnonzero(lo_h < 0xFFFFFFFF)
+    a = real[rng.integers(0, len(real), n)]
+    k = lo_h[a]
+    q = to_numpy(x[4])[a]
+    xa = (to_device(k, dev), to_device(q, dev), *x[2:])
+    want = interval_query_ref(*xa)
+    assert want.any(), "no key at an area start is covered"
+    for v, kw in iops.VARIANTS.items():
+        diff = int((iops._launch_sm90(*xa, **kw, planted_fault=True)
+                    != want).sum())
+        assert diff > 0, f"interval_sm90 ({v}) at lower_bound passes"
+        log(f"interval_sm90 ({v}) with lower_bound: {diff} of {n} stabs at "
+            f"area starts differ: rejected")
+
+    fails = []
+    for cname, k, q, *cols in interval_cases(rng):
+        x = (to_device(k, dev), to_device(q, dev),
+             *(to_device(c, dev) for c in cols))
+        want = interval_query_ref(*x)
+        ok = {"interval": same(iops._launch_simt(*x), want),
+              "public": same(interval_query(*x), want)}
+        ok.update({v: same(fn(*x), want) for v, fn in variants.items()})
+        if not all(ok.values()):
+            fails.append((cname, ok))
+        log(f"interval sweep {cname} (n = {len(k)}, {len(cols[0])} areas, "
+            f"{int(want.sum())} covered): bit-exact {ok}")
+    assert not fails, f"interval kernels differ from the plain version: {fails}"
+    return {"old": old, "new": new}
+
+
+def filter_checks(eng, batches, qk, launches, card, rng) -> list[dict]:
+    """Phase 4's bloom and interval part: the route's sub-batches
+    captured from per-level ``get_batch`` calls (outside the counted
+    window) until both kernels have some, then both kernel pairs."""
+    blooms, stabs = [], []
+    for batch in batches:
+        b, i = capture_route(eng, batch)
+        blooms += b
+        stabs += i
+        if blooms and stabs:
+            break
+    assert blooms and stabs, (len(blooms), len(stabs))
+    b = bloom_checks(eng, qk, launches, card, rng, blooms)
+    i = interval_checks(eng, launches, card, rng, stabs)
+    return [b["old"], i["old"], b["new"], i["new"]]
 
 
 # ---------------------------------------------------------- model phase

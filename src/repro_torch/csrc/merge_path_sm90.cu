@@ -146,3 +146,15 @@ extern "C" int merge_path_sm90_launch(const uint32_t* a, int na,
                                                             out);
   return (int)cudaGetLastError();
 }
+
+// An empty kernel on merge_path_sm90's grid: its device time is the
+// launch floor beneath the merge's time (a reading, not a bound).
+__global__ void __launch_bounds__(kMergeThreads) merge_path_sm90_floor_kernel() {}
+
+extern "C" int merge_path_sm90_floor_launch(int na, int nb, void* stream) {
+  const int total = na + nb;
+  if (na < 0 || nb < 0 || total == 0) return (int)cudaErrorInvalidValue;
+  merge_path_sm90_floor_kernel<<<(total + kTile - 1) / kTile, kMergeThreads,
+                                 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}

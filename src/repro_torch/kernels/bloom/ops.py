@@ -1,8 +1,13 @@
-"""Wrapper of the Bloom probe kernel (``csrc/bloom.cu``).
+"""Wrappers of the Bloom probe kernels (``csrc/bloom_sm90.cu`` and
+``csrc/bloom.cu``).
 
 Replaces ``src/repro/kernels/bloom/kernel.py::bloom_probe_pallas``.  A
-CPU tensor takes the plain version; a CUDA tensor launches the kernel,
-one launch over the whole filter, or raises.
+CPU tensor takes the plain version; a CUDA tensor launches
+``bloom_sm90`` (a thread a key), one launch over the whole filter, or
+raises.  The first ``bloom`` kernel (a thread a key that
+stops at its first unset bit) computes the same verdicts and is reached
+only through ``_launch_simt``, so that both can be timed on the same
+inputs.
 """
 
 from __future__ import annotations
@@ -16,6 +21,13 @@ from ...obs import span
 from .. import native
 from .ref import bloom_probe_ref
 
+# ``bloom_sm90``'s variants (the C launcher's ``variant``): a thread a
+# key, an 8-lane group a key, four keys a thread.  Every CUDA call takes
+# "thread": it was the fastest at every shape timed on the card (n =
+# 1024 and 8192, a 353 K-entry and a 3 M-key filter; PERF.md section 6),
+# so there is nothing for a choice by shape to pick.
+VARIANTS = {"thread": 0, "group": 1, "vec4": 2}
+
 
 def bloom_probe(keys32: torch.Tensor, words: torch.Tensor, *, m_bits: int,
                 seeds) -> torch.Tensor:
@@ -25,23 +37,67 @@ def bloom_probe(keys32: torch.Tensor, words: torch.Tensor, *, m_bits: int,
         if keys32.device.type == "cpu":
             return bloom_probe_ref(keys32, words, m_bits=m_bits,
                                    seeds=seeds)
-        return _launch(keys32, words, int(m_bits), seeds)
+        return _launch_sm90(keys32, words, m_bits, seeds)
 
 
-def _launch(keys32, words, m_bits, seeds) -> torch.Tensor:
-    dev = native.require_cuda("bloom", keys32, words)
-    seeds_host = np.ascontiguousarray(
-        [int(s) for s in seeds], dtype=np.uint32)
-    n = keys32.numel()
-    out = torch.empty(n, dtype=torch.int32, device=dev)
-    fn = native.library("bloom").bloom_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
+def _operands(name, keys32, words, m_bits, seeds):
+    """Checked device, seeds on the host, output, and the leading C
+    arguments shared by both kernels."""
+    m_bits = int(m_bits)
+    if not 0 < m_bits < 1 << 32 or words.numel() * 32 < m_bits:
+        raise ValueError(f"{name}: m_bits {m_bits} outside [1, 2^32) or "
+                         f"past the filter's {words.numel()} words")
+    dev = native.require_cuda(name, keys32, words)
+    seeds_host = np.ascontiguousarray([int(s) for s in seeds],
+                                      dtype=np.uint32)
+    out = torch.empty(keys32.numel(), dtype=torch.int32, device=dev)
+    args = [keys32.numel(), native.ptr(keys32), native.ptr(words), m_bits,
+            seeds_host.ctypes.data_as(ctypes.c_void_p), len(seeds_host),
+            native.ptr(out)]
+    argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_uint32, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p]
+    return dev, seeds_host, out, args, argtypes
+
+
+def _launch_sm90(keys32, words, m_bits, seeds, *, variant: str = "thread",
+                 threads: int = 0, planted_fault: bool = False):
+    """``bloom_sm90`` in one variant; ``threads`` a block (0: spread the
+    launch over every SM); ``planted_fault`` probes only the first H - 1
+    seeds (a wrong kernel, for the card's checks)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"bloom_sm90: variant {variant!r} not in "
+                         f"{sorted(VARIANTS)}")
+    dev, seeds_host, out, args, argtypes = _operands(
+        "bloom_sm90", keys32, words, m_bits, seeds)
+    fn = native.library("bloom_sm90").bloom_sm90_launch
+    fn.argtypes = argtypes + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(n, native.ptr(keys32), native.ptr(words), m_bits,
-             seeds_host.ctypes.data_as(ctypes.c_void_p), len(seeds_host),
-             native.ptr(out), native.stream(dev))
-    native.check("bloom", err)
+    native.check("bloom_sm90", fn(*args, VARIANTS[variant], int(threads),
+                                  int(planted_fault), native.stream(dev)))
+    native.count_launch("bloom_sm90")
+    return out
+
+
+def _launch_simt(keys32, words, m_bits, seeds) -> torch.Tensor:
+    """``bloom``: a thread a key, the probes one after another."""
+    dev, seeds_host, out, args, argtypes = _operands(
+        "bloom", keys32, words, m_bits, seeds)
+    fn = native.library("bloom").bloom_launch
+    fn.argtypes = argtypes + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    native.check("bloom", fn(*args, native.stream(dev)))
     native.count_launch("bloom")
     return out
+
+
+def _launch_floor(n: int, device, *, variant: str = "thread",
+                  threads: int = 0) -> None:
+    """An empty kernel on ``bloom_sm90``'s grid for n keys: the launch
+    floor beneath its time (not a launch of the probe)."""
+    dev = torch.device(device)
+    fn = native.library("bloom_sm90").bloom_sm90_floor_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    native.check("bloom_sm90_floor", fn(n, VARIANTS[variant], int(threads),
+                                        native.stream(dev)))

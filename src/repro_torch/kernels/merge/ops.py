@@ -75,6 +75,16 @@ def _launch_merge_path(a, b, *, planted_fault: bool = False):
     return out
 
 
+def _launch_floor(na: int, nb: int, device) -> None:
+    """An empty kernel on ``merge_path_sm90``'s grid for runs of na and
+    nb: the launch floor beneath its time (not a launch of the merge)."""
+    dev = torch.device(device)
+    fn = native.library("merge_path_sm90").merge_path_sm90_floor_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    native.check("merge_path_sm90_floor", fn(na, nb, native.stream(dev)))
+
+
 def merge_ranks(ka: np.ndarray, kb: np.ndarray, device):
     """Merged-output positions of two key-sorted u32 runs on ``device``.
 

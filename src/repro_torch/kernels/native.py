@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("cascade", "merge_rank", "bloom", "interval", "ssd",
            "flash_attention", "ssd_sm90", "flash_attention_sm90",
-           "cascade_sm90", "merge_path_sm90")
+           "cascade_sm90", "merge_path_sm90", "bloom_sm90", "interval_sm90")
 INTS = (torch.int32, torch.uint32)
 FLOATS = (torch.float32, torch.bfloat16)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
