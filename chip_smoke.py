@@ -27,9 +27,7 @@ result.  Phases, each of which fails the run on any error:
 3. The per-level route: the same lookups with the cascade off must
    return the same results, every per-level launch a ``bloom_sm90`` or
    ``interval_sm90`` one (none of the first ``bloom`` or ``interval``),
-   as many as the ``KernelCounters`` count gated calls; then the same
-   lookups with ``bloom.cu`` and ``interval.cu`` in their place, in
-   turns with the new ones (a reading of what shows end to end).
+   as many as the ``KernelCounters`` count gated calls.
 4. Each store kernel against its plain PyTorch version on the card, at
    the shapes the slice gives it, bit-exact, with its median time, the
    plain version's time, its bound and, for the merge kernels, the
@@ -48,13 +46,13 @@ result.  Phases, each of which fails the run on any error:
    planted fault) must fail, then a sweep: (2^12, 2^16), (2^16, 2^19),
    (2^19, 2^22), all keys equal, disjoint runs both ways, a run of one
    both ways, ragged lengths, and 0 and 0xFFFFFFFE present.  Bloom
-   and interval: both generations (and the new kernels' other
-   variants) bit-exact and timed in turns on the route's sub-batches
-   captured from a per-level ``get_batch``, on n = 1024 and 8192 keys
-   against the deepest level's filter and a 3 M-key filter (10 bits a
-   key, 6 hashes), and on n = 1024 to 8192 stabs against the cell's
-   largest DR-tree level and a level of 2^20 areas, beside an empty
-   kernel on the shipped kernel's grid; ``bloom_sm90`` probing H - 1
+   and interval: both generations bit-exact and timed in turns on the
+   route's sub-batches captured from a per-level ``get_batch``, on n =
+   1024 and 8192 keys against the deepest level's filter and a 3 M-key
+   filter (10 bits a key, 6 hashes), and on n = 1024 and 8192 stabs
+   against the cell's largest DR-tree level and a level of 2^20 areas,
+   beside an empty kernel on the new kernel's grid; ``bloom_sm90``
+   probing H - 1
    seeds must fail on absent keys and ``interval_sm90`` searching
    lower_bound at area starts (planted faults); then a sweep of edge
    cases (``bloom_cases``, ``interval_cases``) through every kernel.
@@ -499,45 +497,12 @@ def store_phases(card: str) -> list[dict]:
     report_lookups("per-level route (results equal)", lat2, card)
     log(f"per-level launches {json.dumps(route_launches)}, equal to the "
         f"gated calls (bloom {bloom_calls}, interval {interval_calls})")
-    route_ab(eng, batches, results, card)
 
     # 4. each kernel against its plain version at the path's shapes
     records = kernel_checks(eng, views, batches, main_launches,
                             route_launches, card)
     eng.close()
     return records
-
-
-def route_ab(eng, batches, results, card) -> None:
-    """The per-level route's lookups with the first bloom and interval
-    kernels (``bloom.cu``, ``interval.cu``) in place of the new ones, in turns (old, new, new, old; the
-    same results each time): a reading of how much of the kernels' gain
-    shows end to end, outside the counted window."""
-    from repro_torch.engine import executor
-    from repro_torch.kernels.bloom import ops as bops
-    from repro_torch.kernels.interval import ops as iops
-    real = executor.bloom_probe, executor.interval_query
-
-    def old_bloom(keys32, words, *, m_bits, seeds):
-        return bops._launch_simt(keys32, words, m_bits, seeds)
-
-    walls = {"old": [], "new": []}
-    for which in ("old", "new", "new", "old"):
-        if which == "old":
-            executor.bloom_probe = old_bloom
-            executor.interval_query = iops._launch_simt
-        try:
-            got, lat = lookups(eng, batches)
-        finally:
-            executor.bloom_probe, executor.interval_query = real
-        assert all(np.array_equal(f0, f1) and np.array_equal(v0, v1)
-                   for (f0, v0), (f1, v1) in zip(results, got)), which
-        walls[which].append(sum(lat))
-    keys = len(batches) * LOOKUP_BATCH
-    log("per-level route, bloom + interval / the _sm90 kernels, in turns: "
-        + ", ".join(f"{w}: " + " ".join(f"{x:.3f} s = {keys / x:.1f} ops/s"
-                                        for x in walls[w])
-                    for w in ("old", "new")) + f" (results equal) {card}")
 
 
 def check_kernel(name, launches, kernel, plain, bytes_, card, *, ops=0,
@@ -939,8 +904,8 @@ def interval_cases(rng) -> list:
     with an empty level, one area probed at and around its lo, hi
     (exclusive), smin and smax, the registry's pow2-padded columns with
     clamped areas, areas at both u32 ends, n = 1, ragged n, levels of
-    8192 (staged whole), 8193 and 3 x 8192 + 5 areas (a strided
-    directory) and an unpadded level."""
+    8192 areas, 8193 and 3 x 8192 + 5 areas and an unpadded level (the
+    small levels' directories hold every lo, the others every 2^s-th)."""
     from types import SimpleNamespace
     from repro_torch.engine.registry import clamp_level_u32
     u32 = np.uint32
@@ -1007,16 +972,13 @@ def capture_route(eng, batch: np.ndarray):
     return blooms, stabs
 
 
-def in_turns(old, new, others: dict) -> dict:
-    """Device ms on one input of the first kernel and the shipped one in
-    turns (old, new, the other variants once each, new, old; each
-    generation the mean of its two readings)."""
+def in_turns(old, new) -> dict:
+    """Device ms on one input of the first kernel and the new one in
+    turns (old, new, new, old; each the mean of its two readings)."""
     t = {"old": [time_kernel_ms(old)], "new": [time_kernel_ms(new)]}
-    t.update({k: time_kernel_ms(fn) for k, fn in others.items()})
     t["new"].append(time_kernel_ms(new))
     t["old"].append(time_kernel_ms(old))
-    t["old"], t["new"] = (statistics.fmean(t[k]) for k in ("old", "new"))
-    return t
+    return {k: statistics.fmean(v) for k, v in t.items()}
 
 
 def rotate(fn, inputs: list):
@@ -1026,7 +988,7 @@ def rotate(fn, inputs: list):
 
 
 def bloom_checks(eng, qk, launches, card, rng, blooms) -> dict:
-    """``bloom`` and ``bloom_sm90`` (each variant) against the plain
+    """``bloom`` and ``bloom_sm90`` against the plain
     version and timed in turns on the route's captured sub-batches, on
     n = 1024 and 8192 keys against the deepest level's filter and a
     3 M-key filter; the planted fault; the sweep."""
@@ -1060,11 +1022,6 @@ def bloom_checks(eng, qk, launches, card, rng, blooms) -> dict:
                 else queries(keys, n)
             inputs[f"{f} n={n}"] = (qh, bb, (to_device(qh, dev), words,
                                              bb.m_bits, bb.seeds))
-    variants = {v: (lambda *a, v=v: bops._launch_sm90(*a, variant=v))
-                for v in bops.VARIANTS}
-    variants["thread, blocks of 256"] = \
-        lambda *a: bops._launch_sm90(*a, variant="thread", threads=256)
-
     def shipped(k, w, m, s):
         return bloom_probe(k, w, m_bits=m, seeds=s)
 
@@ -1074,31 +1031,26 @@ def bloom_checks(eng, qk, launches, card, rng, blooms) -> dict:
     for x in blooms:  # every captured sub-batch, every kernel exact
         want = plain(*x)
         assert same(bops._launch_simt(*x), want)
-        assert all(same(fn(*x), want) for fn in variants.values())
+        assert same(shipped(*x), want)
     ns = sorted(x[0].numel() for x in blooms)
     times = {"route": in_turns(rotate(bops._launch_simt, blooms),
-                               rotate(shipped, blooms),
-                               {v: rotate(fn, blooms)
-                                for v, fn in variants.items()})}
+                               rotate(shipped, blooms))}
     log(f"bloom, the route's {len(blooms)} captured sub-batches (n "
         f"{ns[0]}..{ns[-1]}, median {ns[len(ns) // 2]}), rotated: "
         f"{json.dumps(times['route'])} ms {card}")
     for name, (qh, bb, x) in inputs.items():
         want = plain(*x)
         assert same(bops._launch_simt(*x), want), name
-        for v, fn in variants.items():
-            assert same(fn(*x), want), (name, v)
+        assert same(shipped(*x), want), name
         n = len(qh)
         times[name] = in_turns(lambda: bops._launch_simt(*x),
-                               lambda: shipped(*x),
-                               {v: (lambda fn=fn: fn(*x))
-                                for v, fn in variants.items()})
+                               lambda: shipped(*x))
         times[name]["floor"] = time_kernel_ms(
             lambda: bops._launch_floor(n, dev))
         times[name]["bound"] = (8 * n + SECTOR * bloom_probe_counts(
             qh, bb.words, bb.m_bits, bb.seeds)) / HBM_BYTES_PER_S * 1e3
         log(f"bloom, {name} (H = {len(bb.seeds)}, {bb.m_bits} bits): "
-            f"every variant bit-exact; {json.dumps(times[name])} ms {card}")
+            f"both bit-exact; {json.dumps(times[name])} ms {card}")
 
     # The headline input of earlier runs: one shard's mixed batch.
     qh, bb, x = inputs["deepest n=1024"]
@@ -1118,20 +1070,17 @@ def bloom_checks(eng, qk, launches, card, rng, blooms) -> dict:
                                            dtype=np.uint64)), dev)
     x = (qa, filters["3M"][1], big.m_bits, big.seeds)
     want = plain(*x)
-    for v in bops.VARIANTS:
-        diff = int((bops._launch_sm90(*x, variant=v, planted_fault=True)
-                    != want).sum())
-        assert diff > 0, f"bloom_sm90 ({v}) with H - 1 seeds passes"
-        log(f"bloom_sm90 ({v}) probing H - 1 seeds: {diff} of 8192 absent "
-            f"keys' verdicts differ: rejected")
+    diff = int((bops._launch_sm90(*x, planted_fault=True) != want).sum())
+    assert diff > 0, "bloom_sm90 with H - 1 seeds passes"
+    log(f"bloom_sm90 probing H - 1 seeds: {diff} of 8192 absent keys' "
+        f"verdicts differ: rejected")
 
     fails = []
     for name, k, w, m_bits, seeds in bloom_cases(rng):
         x = (to_device(k, dev), to_device(w, dev), m_bits, seeds)
         want = plain(*x)
         ok = {"bloom": same(bops._launch_simt(*x), want),
-              "public": same(shipped(*x), want)}
-        ok.update({v: same(fn(*x), want) for v, fn in variants.items()})
+              "bloom_sm90": same(shipped(*x), want)}
         if not all(ok.values()):
             fails.append((name, ok))
         log(f"bloom sweep {name} (n = {len(k)}, H = {len(seeds)}, "
@@ -1141,11 +1090,10 @@ def bloom_checks(eng, qk, launches, card, rng, blooms) -> dict:
 
 
 def interval_checks(eng, launches, card, rng, stabs) -> dict:
-    """``interval`` and ``interval_sm90`` (each design) against the plain
-    version and timed in turns on the route's captured sub-batches, on
-    n = 1024, 4096, 6144 and 8192 stabs against the cell's largest
-    DR-tree level and a level of 2^20 areas; the planted fault; the
-    sweep."""
+    """``interval`` and ``interval_sm90`` against the plain version and
+    timed in turns on the route's captured sub-batches, on n = 1024 and
+    8192 stabs against the cell's largest DR-tree level and a level of
+    2^20 areas; the planted fault; the sweep."""
     from repro_torch.kernels.interval import ops as iops
     from repro_torch.kernels.interval.ops import interval_query
     from repro_torch.kernels.interval.ref import interval_query_ref
@@ -1159,55 +1107,38 @@ def interval_checks(eng, launches, card, rng, stabs) -> dict:
     big = disjoint_level(rng, BIG_LEVEL)
     levels = {f"cell ({len(g)} areas)": (cell, [to_numpy(c) for c in cell]),
               "2^20 areas": (tuple(to_device(c, dev) for c in big), big)}
-    # The shipped pair, then the rest of the design space timed beside
-    # it: 16 lanes; one thread a query over a directory of 1 (a plain
-    # search), 64, 128, 256 and 512 entries in SM-spreading blocks, of
-    # 256 in blocks of 128, and the whole column in blocks of 256.
-    variants = {f"group {w}": (lambda *a, w=w: iops._launch_sm90(
-        *a, design="group", lanes=w)) for w in (32, 16)}
-    for e, t in ((256, 256), (1, 0), (64, 0), (128, 0), (256, 0), (512, 0),
-                 (256, 128), (iops.DIR_MAX, 256)):
-        name = "search" if e == 1 else f"directory {e}" + (
-            f", blocks of {t}" if t else "")
-        variants[name] = (lambda *a, e=e, t=t: iops._launch_sm90(
-            *a, design="directory", entries=e, threads=t))
 
     for x in stabs:
         want = interval_query_ref(*x)
         assert same(iops._launch_simt(*x), want)
-        assert all(same(fn(*x), want) for fn in variants.values())
+        assert same(interval_query(*x), want)
     ns = sorted(x[0].numel() for x in stabs)
     times = {"route": in_turns(rotate(iops._launch_simt, stabs),
-                               rotate(interval_query, stabs),
-                               {v: rotate(fn, stabs)
-                                for v, fn in variants.items()})}
+                               rotate(interval_query, stabs))}
     log(f"interval, the route's {len(stabs)} captured sub-batches (n "
         f"{ns[0]}..{ns[-1]}, areas {sorted({x[2].numel() for x in stabs})})"
         f", rotated: {json.dumps(times['route'])} ms {card}")
     inputs = {}
     for lname, (cols, host) in levels.items():
         m = cols[0].numel()
-        for n in (1024, 4096, 6144, 8192):
+        for n in (1024, 8192):
             k, q = stab_queries(rng, host, n)
             x = (to_device(k, dev), to_device(q, dev), *cols)
             want = interval_query_ref(*x)
             assert same(iops._launch_simt(*x), want), lname
-            for v, fn in variants.items():
-                assert same(fn(*x), want), (lname, n, v)
+            assert same(interval_query(*x), want), (lname, n)
             name = f"{lname} n={n}"
             inputs[name] = x
             times[name] = in_turns(lambda: iops._launch_simt(*x),
-                                   lambda: interval_query(*x),
-                                   {v: (lambda fn=fn: fn(*x))
-                                    for v, fn in variants.items()})
-            times[name]["floor"] = time_kernel_ms(lambda: iops._launch_floor(
-                n, dev, **iops.VARIANTS[iops.kernel_for(n, m)]))
+                                   lambda: interval_query(*x))
+            times[name]["floor"] = time_kernel_ms(
+                lambda: iops._launch_floor(n, dev))
             by = 12 * n + SECTOR * (min(search_sectors(m, n), m // 8 + 1)
                                     + 3 * n)
             times[name]["bound"] = by / HBM_BYTES_PER_S * 1e3
             log(f"interval, {name} (padded to {m}, {int(want.sum())} "
-                f"covered, shipped variant {iops.kernel_for(n, m)}): every "
-                f"design bit-exact; {json.dumps(times[name])} ms {card}")
+                f"covered): both bit-exact; {json.dumps(times[name])} ms "
+                f"{card}")
 
     name = next(iter(inputs))  # the cell's level at n = 1024
     x = inputs[name]
@@ -1232,12 +1163,10 @@ def interval_checks(eng, launches, card, rng, stabs) -> dict:
     xa = (to_device(k, dev), to_device(q, dev), *x[2:])
     want = interval_query_ref(*xa)
     assert want.any(), "no key at an area start is covered"
-    for v, kw in iops.VARIANTS.items():
-        diff = int((iops._launch_sm90(*xa, **kw, planted_fault=True)
-                    != want).sum())
-        assert diff > 0, f"interval_sm90 ({v}) at lower_bound passes"
-        log(f"interval_sm90 ({v}) with lower_bound: {diff} of {n} stabs at "
-            f"area starts differ: rejected")
+    diff = int((iops._launch_sm90(*xa, planted_fault=True) != want).sum())
+    assert diff > 0, "interval_sm90 at lower_bound passes"
+    log(f"interval_sm90 with lower_bound: {diff} of {n} stabs at area "
+        f"starts differ: rejected")
 
     fails = []
     for cname, k, q, *cols in interval_cases(rng):
@@ -1245,8 +1174,7 @@ def interval_checks(eng, launches, card, rng, stabs) -> dict:
              *(to_device(c, dev) for c in cols))
         want = interval_query_ref(*x)
         ok = {"interval": same(iops._launch_simt(*x), want),
-              "public": same(interval_query(*x), want)}
-        ok.update({v: same(fn(*x), want) for v, fn in variants.items()})
+              "interval_sm90": same(interval_query(*x), want)}
         if not all(ok.values()):
             fails.append((cname, ok))
         log(f"interval sweep {cname} (n = {len(k)}, {len(cols[0])} areas, "

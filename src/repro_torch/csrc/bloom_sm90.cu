@@ -24,14 +24,10 @@
 //     scattered probes);
 //   - H is a compile-time count for H <= 8 (the paper's filters use 6),
 //     so the seeds stay in the constant bank and the loads unroll.
-// Two variants are built beside it and timed on the card (PERF.md
-// section 6): an 8-lane group a key, lane h probing seed h, the AND by
-// __all_sync (the cascade's Bloom round), and 4 keys a thread with
-// 16-byte key loads and verdict stores.  Both lost to the thread a key
-// at n = 1024 and 8192, so every call of kernels/bloom/ops.py::
-// bloom_probe takes that one.
+// An 8-lane group a key (the cascade's Bloom round) and 4 keys a thread
+// with 16-byte key loads both lost to this kernel at n = 1024 and 8192
+// (PERF.md section 6) and were removed.
 #include "common.cuh"
-#include "group_search.cuh"
 
 constexpr int kMaxSeeds = 32;
 
@@ -84,130 +80,41 @@ __global__ void bloom_sm90_kernel(int n, const uint32_t* __restrict__ keys,
   out[i] = (int32_t)probe<kH, kExact>(__ldg(keys + i), words, mod, seeds, H);
 }
 
-// Four keys a thread: one 16-byte key load and one 16-byte store where
-// the four lie inside n (keys and out 16-byte aligned, checked by the
-// launcher), single ones at the ragged end.
-template <int kH, bool kExact>
-__global__ void bloom_sm90_vec4_kernel(int n,
-                                       const uint32_t* __restrict__ keys,
-                                       const uint32_t* __restrict__ words,
-                                       Mod mod, Seeds seeds, int H,
-                                       int32_t* __restrict__ out) {
-  const int i = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
-  if (i >= n) return;
-  if (i + 4 <= n) {
-    const uint4 k = __ldg(reinterpret_cast<const uint4*>(keys + i));
-    int4 r;
-    r.x = (int)probe<kH, kExact>(k.x, words, mod, seeds, H);
-    r.y = (int)probe<kH, kExact>(k.y, words, mod, seeds, H);
-    r.z = (int)probe<kH, kExact>(k.z, words, mod, seeds, H);
-    r.w = (int)probe<kH, kExact>(k.w, words, mod, seeds, H);
-    *reinterpret_cast<int4*>(out + i) = r;
-  } else {
-    for (int j = i; j < n; ++j)
-      out[j] = (int32_t)probe<kH, kExact>(__ldg(keys + j), words, mod, seeds,
-                                         H);
-  }
-}
-
-// Seed h of s for a runtime h (a lane's own seed), without indexing the
-// parameter array at run time.
-__device__ __forceinline__ uint32_t seed_at(const Seeds& s, int h) {
-  uint32_t v = 0;
-#pragma unroll
-  for (int j = 0; j < kMaxSeeds; ++j) v = j == h ? s.v[j] : v;
-  return v;
-}
-
-// An 8-lane group a key: lane h probes seeds h, h + 8, ...; the group's
-// vote is the AND.
-__global__ void bloom_sm90_group_kernel(int n,
-                                        const uint32_t* __restrict__ keys,
-                                        const uint32_t* __restrict__ words,
-                                        Mod mod, Seeds seeds, int H,
-                                        int32_t* __restrict__ out) {
-  const LaneGroup<8> g;
-  const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 3;
-  if (i >= n) return;  // the whole group leaves together
-  const uint32_t k = __ldg(keys + i);
-  bool set = true;
-  for (int h0 = 0; h0 < H; h0 += 8) {
-    const int h = h0 + g.lane;
-    if (h < H) {
-      const uint32_t p = mod_by(mix32(k, seed_at(seeds, h)), mod);
-      set &= ((__ldg(words + (p >> 5)) >> (p & 31u)) & 1u) != 0;
-    }
-  }
-  const bool all = g.all(set);
-  if (g.lane == 0) out[i] = all ? 1 : 0;
-}
-
-enum Variant { kThread = 0, kGroup = 1, kVec4 = 2 };
-
-// Threads the launch runs: one a key, 8 a key, or one per 4 keys.
-inline long long threads_for(int n, int variant) {
-  return variant == kGroup   ? 8LL * n
-         : variant == kVec4 ? (n + 3LL) / 4
-                            : (long long)n;
-}
-
-template <int kH, bool kExact>
-void launch_h(int variant, int blocks, int block, int n, const uint32_t* keys,
-              const uint32_t* words, Mod mod, const Seeds& seeds, int H,
-              int32_t* out, cudaStream_t stream) {
-  if (variant == kVec4)
-    bloom_sm90_vec4_kernel<kH, kExact><<<blocks, block, 0, stream>>>(
-        n, keys, words, mod, seeds, H, out);
-  else
-    bloom_sm90_kernel<kH, kExact><<<blocks, block, 0, stream>>>(
-        n, keys, words, mod, seeds, H, out);
-}
-
-// variant: 0 a thread a key, 1 an 8-lane group a key, 2 four keys a
-// thread (keys and out 16-byte aligned); threads: the block size (a
-// multiple of 32 up to 1024), 0 for the SM-spreading default;
 // planted_fault != 0 probes only the first H - 1 seeds (a wrong kernel
 // for the card's checks).
 extern "C" int bloom_sm90_launch(int n, const uint32_t* keys,
                                  const uint32_t* words, uint32_t m_bits,
                                  const uint32_t* seeds_host, int H,
-                                 int32_t* out, int variant, int threads,
-                                 int planted_fault, void* stream) {
-  if (H < 0 || H > kMaxSeeds || m_bits == 0 || variant < kThread ||
-      variant > kVec4 || threads < 0 || threads > 1024 || threads % 32)
+                                 int32_t* out, int planted_fault,
+                                 void* stream) {
+  if (H < 0 || H > kMaxSeeds || m_bits == 0)
     return (int)cudaErrorInvalidValue;
-  if (variant == kVec4 && (((uintptr_t)keys | (uintptr_t)out) & 15))
-    return (int)cudaErrorMisalignedAddress;
   Seeds seeds = {};
   for (int h = 0; h < H; ++h) seeds.v[h] = seeds_host[h];
   if (planted_fault && H > 0) --H;
   const Mod mod = {m_bits, 0xFFFFFFFFu / m_bits};
   if (n <= 0) return (int)cudaGetLastError();
-  const long long total = threads_for(n, variant);
-  const int block = threads ? threads : spread_block(total);
-  const int blocks = (int)((total + block - 1) / block);
+  const int block = spread_block(n);
+  const int blocks = (n + block - 1) / block;
   cudaStream_t st = (cudaStream_t)stream;
-  if (variant == kGroup) {
-    bloom_sm90_group_kernel<<<blocks, block, 0, st>>>(n, keys, words, mod,
-                                                      seeds, H, out);
-    return (int)cudaGetLastError();
-  }
   switch (H) {
-#define BLOOM_CASE(h)                                                     \
-  case h:                                                                 \
-    launch_h<h, true>(variant, blocks, block, n, keys, words, mod, seeds, \
-                      H, out, st);                                        \
+#define BLOOM_CASE(h)                                                    \
+  case h:                                                                \
+    bloom_sm90_kernel<h, true><<<blocks, block, 0, st>>>(n, keys, words, \
+                                                         mod, seeds, H,  \
+                                                         out);           \
     break;
     BLOOM_CASE(1) BLOOM_CASE(2) BLOOM_CASE(3) BLOOM_CASE(4)
     BLOOM_CASE(5) BLOOM_CASE(6) BLOOM_CASE(7) BLOOM_CASE(8)
 #undef BLOOM_CASE
     case 0:  // no seed: every key may be present
-      launch_h<1, false>(variant, blocks, block, n, keys, words, mod, seeds,
-                         0, out, st);
+      bloom_sm90_kernel<1, false><<<blocks, block, 0, st>>>(n, keys, words,
+                                                           mod, seeds, 0,
+                                                           out);
       break;
     default:
-      launch_h<kMaxSeeds, false>(variant, blocks, block, n, keys, words, mod,
-                                 seeds, H, out, st);
+      bloom_sm90_kernel<kMaxSeeds, false><<<blocks, block, 0, st>>>(
+          n, keys, words, mod, seeds, H, out);
   }
   return (int)cudaGetLastError();
 }
@@ -216,14 +123,10 @@ extern "C" int bloom_sm90_launch(int n, const uint32_t* keys,
 // time is the launch floor beneath the probe's (a reading, not a bound).
 __global__ void bloom_sm90_floor_kernel() {}
 
-extern "C" int bloom_sm90_floor_launch(int n, int variant, int threads,
-                                       void* stream) {
-  if (n <= 0 || variant < kThread || variant > kVec4 || threads < 0 ||
-      threads > 1024 || threads % 32)
-    return (int)cudaErrorInvalidValue;
-  const long long total = threads_for(n, variant);
-  const int block = threads ? threads : spread_block(total);
-  bloom_sm90_floor_kernel<<<(int)((total + block - 1) / block), block, 0,
+extern "C" int bloom_sm90_floor_launch(int n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const int block = spread_block(n);
+  bloom_sm90_floor_kernel<<<(n + block - 1) / block, block, 0,
                             (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

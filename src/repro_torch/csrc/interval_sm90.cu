@@ -13,31 +13,22 @@
 // launch floor at the path's sizes; what is left is the dependent-load
 // chain.  csrc/interval.cu runs a binary search in global memory (13
 // dependent loads at 8192 areas, 20 at 2^20), then hi, smin and smax one
-// after another behind the && short-circuit, on 4 SMs for ~1024 keys.
-// Two designs, both timed on the card (PERF.md section 6); kernels/
-// interval/ops.py::kernel_for picks one before the launch:
-//   (a) group search: W lanes a query run group_bound<W, true> from
-//       group_search.cuh (3 rounds at 8192 areas, 4 at 2^20 for W = 32);
-//       lanes 0-2 then load hi, smin and smax at idx in one round, and a
-//       vote of the group combines the three tests.  It is the fastest
-//       at 2^20 areas up to ~4096 queries and the slowest at 8192, where
-//       32 scattered loads a round per query outweigh the round trips
-//       they save;
-//   (b) directory: one thread a query; each block stages every 2^s-th
-//       entry of lo (at most `entries`, the whole column when it fits) in
-//       shared memory and searches there; the last s steps run in global
-//       memory over one 2^s-entry segment.  The shipped directory holds
-//       256 entries, staged once by each block of 256 queries: at 8192
-//       areas the segment is 32 entries, one 128-byte line, so the
-//       search costs one global round trip.  Staging the whole column
-//       (32 KB a block) cost more than the steps it saved.
-// The three tail loads are issued together, without the short-circuit.
-// By default a launch spreads over every SM (common.cuh::spread_block).
+// after another behind the && short-circuit.  Here one thread a query
+// searches a shared-memory directory of every 2^s-th entry of lo (at
+// most kDirEntries, the whole column when it fits), staged once by each
+// block of kDirThreads queries; the last s steps run in global memory
+// over one 2^s-entry segment.  At 8192 areas the segment is 32 entries,
+// one 128-byte line, so the search costs one global round trip.  The
+// three tail loads are then issued together, without the short-circuit.
+// Staging the whole column (32 KB a block at 8192 areas) and a 32-lane
+// group search (group_search.cuh) were timed beside it (PERF.md section
+// 6): the first lost at every shape; the second won by 1-2 us only on a
+// level of 2^20 areas, larger than any the store's levels reach, and
+// lost at n = 8192.  Both were removed.
 #include "common.cuh"
-#include "group_search.cuh"
 
-constexpr int kDirMax = 8192;      // the largest directory (32 KB)
-constexpr int kDirThreads = 256;   // the directory design's largest block
+constexpr int kDirEntries = 256;  // the directory's largest size (1 KB)
+constexpr int kDirThreads = 256;  // queries a block
 
 // Does x lie before the answer?  upper_bound (kLower false) counts the
 // elements <= q; kLower is the planted fault: lower_bound counts < q and
@@ -47,64 +38,26 @@ __device__ __forceinline__ bool before(uint32_t x, uint32_t q) {
   return kLower ? x < q : x <= q;
 }
 
-// (a) W lanes a query.
-template <int W, bool kLower>
-__global__ void interval_group_kernel(int n,
-                                      const uint32_t* __restrict__ keys,
-                                      const uint32_t* __restrict__ seqs,
-                                      int m, const uint32_t* __restrict__ lo,
-                                      const uint32_t* __restrict__ hi,
-                                      const uint32_t* __restrict__ smin,
-                                      const uint32_t* __restrict__ smax,
-                                      int32_t* __restrict__ out) {
-  const LaneGroup<W> g;
-  const int i = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) / W);
-  if (i >= n) return;  // the whole group leaves together
-  const uint32_t k = __ldg(keys + i);
-  const uint32_t s = __ldg(seqs + i);
-  uint32_t at = 0;
-  const int j = group_bound<W, !kLower>(g, lo, 0, m, k, &at) - 1;
-  bool ok = j >= 0;
-  if (ok) {
-    if (g.lane == 0) ok = k < __ldg(hi + j);
-    else if (g.lane == 1) ok = __ldg(smin + j) <= s;
-    else if (g.lane == 2) ok = s < __ldg(smax + j);
-  }
-  const bool covered = g.all(ok);
-  if (g.lane == 0) out[i] = covered ? 1 : 0;
-}
-
-// (b) One thread a query over a shared-memory directory of lo: dir[t] =
-// lo[t << shift] for t < T = ceil(m / 2^shift), T * 4 bytes of dynamic
-// shared memory.
+// dir[t] = lo[t << shift] for t < T = ceil(m / 2^shift) <= kDirEntries.
 template <bool kLower>
-__global__ void __launch_bounds__(kDirThreads) interval_dir_kernel(
+__global__ void __launch_bounds__(kDirThreads) interval_sm90_kernel(
     int n, const uint32_t* __restrict__ keys,
     const uint32_t* __restrict__ seqs, int m, int shift, int T,
     const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
     const uint32_t* __restrict__ smin, const uint32_t* __restrict__ smax,
     int32_t* __restrict__ out) {
-  extern __shared__ __align__(16) uint32_t dir[];
+  __shared__ uint32_t dir[kDirEntries];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   uint32_t k = 0, s = 0;
   if (i < n) {  // in flight while the directory copies
     k = __ldg(keys + i);
     s = __ldg(seqs + i);
   }
-  if (shift == 0 && ((uintptr_t)lo & 15) == 0) {
-    const int chunks = T >> 2;
-    for (int c = threadIdx.x; c < chunks; c += blockDim.x)
-      reinterpret_cast<uint4*>(dir)[c] =
-          __ldg(reinterpret_cast<const uint4*>(lo) + c);
-    for (int t = 4 * chunks + threadIdx.x; t < T; t += blockDim.x)
-      dir[t] = __ldg(lo + t);
-  } else {
-    for (int t = threadIdx.x; t < T; t += blockDim.x)
-      dir[t] = __ldg(lo + ((size_t)t << shift));
-  }
+  for (int t = threadIdx.x; t < T; t += blockDim.x)
+    dir[t] = __ldg(lo + ((size_t)t << shift));
   __syncthreads();
   if (i >= n) return;
-  // u = the directory entries before the answer.
+  // a = the directory entries before the answer.
   int a = 0, b = T;
   while (a < b) {
     const int mid = (a + b) >> 1;
@@ -133,86 +86,30 @@ __global__ void __launch_bounds__(kDirThreads) interval_dir_kernel(
   out[i] = covered;
 }
 
-enum Design { kGroup = 0, kDir = 1 };
-
-// Directory stride: the least shift with ceil(m / 2^shift) <= entries.
-inline int dir_shift(int m, int entries) {
-  int shift = 0;
-  while ((((long long)m + (1LL << shift) - 1) >> shift) > entries) ++shift;
-  return shift;
-}
-
-inline long long threads_for(int n, int design, int lanes) {
-  return design == kGroup ? (long long)lanes * n : (long long)n;
-}
-
-// lanes: 8, 16 or 32 for the group search; entries: the directory's
-// largest size, a power of two in [1, kDirMax].
-inline bool valid(int n, int m, int design, int lanes, int entries,
-                  int threads) {
-  return n >= 0 && m >= 0 && (design == kGroup || design == kDir) &&
-         (design == kDir || lanes == 8 || lanes == 16 || lanes == 32) &&
-         (design == kGroup || (entries >= 1 && entries <= kDirMax &&
-                               (entries & (entries - 1)) == 0)) &&
-         threads >= 0 && threads % 32 == 0 &&
-         threads <= (design == kDir ? kDirThreads : 1024);
-}
-
-template <int W>
-void launch_group(bool fault, int blocks, int block, cudaStream_t st, int n,
-                  const uint32_t* keys, const uint32_t* seqs, int m,
-                  const uint32_t* lo, const uint32_t* hi,
-                  const uint32_t* smin, const uint32_t* smax, int32_t* out) {
-  if (fault)
-    interval_group_kernel<W, true><<<blocks, block, 0, st>>>(
-        n, keys, seqs, m, lo, hi, smin, smax, out);
-  else
-    interval_group_kernel<W, false><<<blocks, block, 0, st>>>(
-        n, keys, seqs, m, lo, hi, smin, smax, out);
-}
-
-// design: 0 group search (`lanes` a query), 1 directory (of at most
-// `entries`; 1 is a plain binary search in global memory); threads: the
-// block size (a multiple of 32; at most 256 for the directory), 0 for
-// the SM-spreading default; planted_fault != 0 searches lower_bound (a
-// wrong kernel for the card's checks).  An empty level (m = 0) runs the
-// same kernel, which finds no area.
+// planted_fault != 0 searches lower_bound (a wrong kernel for the card's
+// checks).  An empty level (m = 0) runs the same kernel, which finds no
+// area.
 extern "C" int interval_sm90_launch(int n, const uint32_t* keys,
                                     const uint32_t* seqs, int m,
                                     const uint32_t* lo, const uint32_t* hi,
                                     const uint32_t* smin,
                                     const uint32_t* smax, int32_t* out,
-                                    int design, int lanes, int entries,
-                                    int threads, int planted_fault,
-                                    void* stream) {
-  if (!valid(n, m, design, lanes, entries, threads))
-    return (int)cudaErrorInvalidValue;
+                                    int planted_fault, void* stream) {
+  if (n < 0 || m < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
+  // The least shift with ceil(m / 2^shift) <= kDirEntries.
+  int shift = 0;
+  while ((((long long)m + (1LL << shift) - 1) >> shift) > kDirEntries)
+    ++shift;
+  const int T = (int)(((long long)m + (1LL << shift) - 1) >> shift);
+  const int blocks = (n + kDirThreads - 1) / kDirThreads;
   cudaStream_t st = (cudaStream_t)stream;
-  const long long total = threads_for(n, design, lanes);
-  const int block = threads ? threads : spread_block(total);
-  const int blocks = (int)((total + block - 1) / block);
-  const bool f = planted_fault != 0;
-  if (design == kDir) {
-    const int shift = dir_shift(m, entries);
-    const int T = (int)(((long long)m + (1LL << shift) - 1) >> shift);
-    const size_t smem = sizeof(uint32_t) * (size_t)T;
-    if (f)
-      interval_dir_kernel<true><<<blocks, block, smem, st>>>(
-          n, keys, seqs, m, shift, T, lo, hi, smin, smax, out);
-    else
-      interval_dir_kernel<false><<<blocks, block, smem, st>>>(
-          n, keys, seqs, m, shift, T, lo, hi, smin, smax, out);
-  } else if (lanes == 8) {
-    launch_group<8>(f, blocks, block, st, n, keys, seqs, m, lo, hi, smin,
-                    smax, out);
-  } else if (lanes == 16) {
-    launch_group<16>(f, blocks, block, st, n, keys, seqs, m, lo, hi, smin,
-                     smax, out);
-  } else {
-    launch_group<32>(f, blocks, block, st, n, keys, seqs, m, lo, hi, smin,
-                     smax, out);
-  }
+  if (planted_fault)
+    interval_sm90_kernel<true><<<blocks, kDirThreads, 0, st>>>(
+        n, keys, seqs, m, shift, T, lo, hi, smin, smax, out);
+  else
+    interval_sm90_kernel<false><<<blocks, kDirThreads, 0, st>>>(
+        n, keys, seqs, m, shift, T, lo, hi, smin, smax, out);
   return (int)cudaGetLastError();
 }
 
@@ -220,14 +117,9 @@ extern "C" int interval_sm90_launch(int n, const uint32_t* keys,
 // time is the launch floor beneath the stab's (a reading, not a bound).
 __global__ void interval_sm90_floor_kernel() {}
 
-extern "C" int interval_sm90_floor_launch(int n, int design, int lanes,
-                                          int entries, int threads,
-                                          void* stream) {
-  if (n <= 0 || !valid(n, 1, design, lanes, entries, threads))
-    return (int)cudaErrorInvalidValue;
-  const long long total = threads_for(n, design, lanes);
-  const int block = threads ? threads : spread_block(total);
-  interval_sm90_floor_kernel<<<(int)((total + block - 1) / block), block, 0,
-                               (cudaStream_t)stream>>>();
+extern "C" int interval_sm90_floor_launch(int n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  interval_sm90_floor_kernel<<<(n + kDirThreads - 1) / kDirThreads,
+                               kDirThreads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

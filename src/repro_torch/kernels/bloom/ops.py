@@ -4,10 +4,9 @@
 Replaces ``src/repro/kernels/bloom/kernel.py::bloom_probe_pallas``.  A
 CPU tensor takes the plain version; a CUDA tensor launches
 ``bloom_sm90`` (a thread a key), one launch over the whole filter, or
-raises.  The first ``bloom`` kernel (a thread a key that
-stops at its first unset bit) computes the same verdicts and is reached
-only through ``_launch_simt``, so that both can be timed on the same
-inputs.
+raises.  The first ``bloom`` kernel (a thread a key that stops at its
+first unset bit) computes the same verdicts and is reached only through
+``_launch_simt``, so that both can be timed on the same inputs.
 """
 
 from __future__ import annotations
@@ -20,13 +19,6 @@ import torch
 from ...obs import span
 from .. import native
 from .ref import bloom_probe_ref
-
-# ``bloom_sm90``'s variants (the C launcher's ``variant``): a thread a
-# key, an 8-lane group a key, four keys a thread.  Every CUDA call takes
-# "thread": it was the fastest at every shape timed on the card (n =
-# 1024 and 8192, a 353 K-entry and a 3 M-key filter; PERF.md section 6),
-# so there is nothing for a choice by shape to pick.
-VARIANTS = {"thread": 0, "group": 1, "vec4": 2}
 
 
 def bloom_probe(keys32: torch.Tensor, words: torch.Tensor, *, m_bits: int,
@@ -60,21 +52,17 @@ def _operands(name, keys32, words, m_bits, seeds):
     return dev, seeds_host, out, args, argtypes
 
 
-def _launch_sm90(keys32, words, m_bits, seeds, *, variant: str = "thread",
-                 threads: int = 0, planted_fault: bool = False):
-    """``bloom_sm90`` in one variant; ``threads`` a block (0: spread the
-    launch over every SM); ``planted_fault`` probes only the first H - 1
+def _launch_sm90(keys32, words, m_bits, seeds, *,
+                 planted_fault: bool = False):
+    """``bloom_sm90``; ``planted_fault`` probes only the first H - 1
     seeds (a wrong kernel, for the card's checks)."""
-    if variant not in VARIANTS:
-        raise ValueError(f"bloom_sm90: variant {variant!r} not in "
-                         f"{sorted(VARIANTS)}")
     dev, seeds_host, out, args, argtypes = _operands(
         "bloom_sm90", keys32, words, m_bits, seeds)
     fn = native.library("bloom_sm90").bloom_sm90_launch
-    fn.argtypes = argtypes + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = argtypes + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    native.check("bloom_sm90", fn(*args, VARIANTS[variant], int(threads),
-                                  int(planted_fault), native.stream(dev)))
+    native.check("bloom_sm90", fn(*args, int(planted_fault),
+                                  native.stream(dev)))
     native.count_launch("bloom_sm90")
     return out
 
@@ -91,13 +79,11 @@ def _launch_simt(keys32, words, m_bits, seeds) -> torch.Tensor:
     return out
 
 
-def _launch_floor(n: int, device, *, variant: str = "thread",
-                  threads: int = 0) -> None:
+def _launch_floor(n: int, device) -> None:
     """An empty kernel on ``bloom_sm90``'s grid for n keys: the launch
     floor beneath its time (not a launch of the probe)."""
     dev = torch.device(device)
     fn = native.library("bloom_sm90").bloom_sm90_floor_launch
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    native.check("bloom_sm90_floor", fn(n, VARIANTS[variant], int(threads),
-                                        native.stream(dev)))
+    native.check("bloom_sm90_floor", fn(n, native.stream(dev)))

@@ -3,11 +3,11 @@ and ``csrc/interval.cu``).
 
 Replaces ``src/repro/kernels/interval/kernel.py::interval_query_pallas``.
 A CPU tensor takes the plain version; a CUDA tensor launches
-``interval_sm90`` in the design ``kernel_for`` names, one launch over
-the whole level, or raises.  The first ``interval`` kernel (a thread a
-query, binary search in global memory) computes the same verdicts and
-is reached only through ``_launch_simt``, so that both can be timed on
-the same inputs.
+``interval_sm90`` (a thread a query over a shared-memory directory of
+``lo``), one launch over the whole level, or raises.  The first
+``interval`` kernel (a thread a query, binary search in global memory)
+computes the same verdicts and is reached only through ``_launch_simt``,
+so that both can be timed on the same inputs.
 """
 
 from __future__ import annotations
@@ -20,34 +20,6 @@ from ...obs import span
 from .. import native
 from .ref import interval_query_ref
 
-# ``interval_sm90``'s designs (the C launcher's ``design``): W lanes a
-# query searching together, or a thread a query over a shared-memory
-# directory of ``lo``.
-DESIGNS = {"group": 0, "directory": 1}
-# The most entries of lo a directory holds (``kDirMax``).
-DIR_MAX = 8192
-# The two variants ``kernel_for`` picks between, as ``_launch_sm90``
-# keywords: a warp a query (32-ary search), or a directory of every
-# ceil(m / 256)-th entry of lo staged by blocks of 256 queries.
-VARIANTS = {"group": {"design": "group", "lanes": 32},
-            "directory": {"design": "directory", "entries": 256,
-                          "threads": 256}}
-# Up to this many areas the directory's last steps stay inside one
-# 128-byte line of lo (256 entries x 32); past it, and for sub-batches
-# up to GROUP_MAX_N queries, the group search is faster on the card.
-DIR_LINE_AREAS = 256 * 32
-GROUP_MAX_N = 4096
-
-
-def kernel_for(n: int, m: int) -> str:
-    """The variant of ``interval_sm90`` (a key of ``VARIANTS``) that a
-    CUDA call of n queries against a level of m areas launches.  On the
-    card (PERF.md section 6) the directory won at 8192 areas for every n
-    and at 2^20 areas from n = 6144 on; the group search at 2^20 areas
-    up to n = 4096."""
-    return "directory" if m <= DIR_LINE_AREAS or n > GROUP_MAX_N \
-        else "group"
-
 
 def interval_query(keys32, seqs32, lo, hi, smin, smax) -> torch.Tensor:
     """int32 {0,1} (n,): is (key, seq) covered by the disjoint level?"""
@@ -55,9 +27,7 @@ def interval_query(keys32, seqs32, lo, hi, smin, smax) -> torch.Tensor:
               areas=int(lo.numel())):
         if keys32.device.type == "cpu":
             return interval_query_ref(keys32, seqs32, lo, hi, smin, smax)
-        return _launch_sm90(keys32, seqs32, lo, hi, smin, smax,
-                            **VARIANTS[kernel_for(keys32.numel(),
-                                                  lo.numel())])
+        return _launch_sm90(keys32, seqs32, lo, hi, smin, smax)
 
 
 def _operands(name, keys32, seqs32, lo, hi, smin, smax):
@@ -80,25 +50,16 @@ def _operands(name, keys32, seqs32, lo, hi, smin, smax):
 
 
 def _launch_sm90(keys32, seqs32, lo, hi, smin, smax, *,
-                 design: str = "group", lanes: int = 32,
-                 entries: int = DIR_MAX, threads: int = 0,
                  planted_fault: bool = False):
-    """``interval_sm90`` in one design: ``lanes`` a query for the group
-    search, a directory of at most ``entries`` (a power of two up to
-    ``DIR_MAX``; 1 searches global memory only); ``threads`` a block (0:
-    spread the launch over every SM); ``planted_fault`` searches
-    lower_bound (a wrong kernel, for the card's checks)."""
-    if design not in DESIGNS:
-        raise ValueError(f"interval_sm90: design {design!r} not in "
-                         f"{sorted(DESIGNS)}")
+    """``interval_sm90``; ``planted_fault`` searches lower_bound (a wrong
+    kernel, for the card's checks)."""
     dev, out, args, argtypes = _operands("interval_sm90", keys32, seqs32, lo,
                                          hi, smin, smax)
     fn = native.library("interval_sm90").interval_sm90_launch
-    fn.argtypes = argtypes + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = argtypes + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    native.check("interval_sm90", fn(*args, DESIGNS[design], int(lanes),
-                                     int(entries), int(threads),
-                                     int(planted_fault), native.stream(dev)))
+    native.check("interval_sm90", fn(*args, int(planted_fault),
+                                     native.stream(dev)))
     native.count_launch("interval_sm90")
     return out
 
@@ -115,15 +76,11 @@ def _launch_simt(keys32, seqs32, lo, hi, smin, smax) -> torch.Tensor:
     return out
 
 
-def _launch_floor(n: int, device, *, design: str = "group",
-                  lanes: int = 32, entries: int = DIR_MAX,
-                  threads: int = 0) -> None:
+def _launch_floor(n: int, device) -> None:
     """An empty kernel on ``interval_sm90``'s grid for n queries: the
     launch floor beneath its time (not a launch of the stab)."""
     dev = torch.device(device)
     fn = native.library("interval_sm90").interval_sm90_floor_launch
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    native.check("interval_sm90_floor",
-                 fn(n, DESIGNS[design], int(lanes), int(entries),
-                    int(threads), native.stream(dev)))
+    native.check("interval_sm90_floor", fn(n, native.stream(dev)))

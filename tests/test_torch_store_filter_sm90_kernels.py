@@ -9,14 +9,12 @@ kernels work:
 - the reciprocal modulo (``mod_by``): ``x - umulhi(x, magic) * d`` with
   ``magic = floor((2^32 - 1) / d)`` and one correction step equals
   ``x % d`` for every u32 x and d in [1, 2^32);
-- ``bloom_sm90`` in each of its variants (a thread a key, the one every
-  call takes; an 8-lane group a key; four keys a thread): every
-  position first, all H loads, then the AND;
-- ``interval_sm90`` in each design ``kernel_for`` picks (the W-lane
-  group search of ``csrc/group_search.cuh``, emulated as in
-  ``tests/test_torch_store_sm90_kernels.py``; the shared-memory
-  directory, whole or strided, then the segment in global memory), the
-  three tail tests without the short-circuit;
+- ``bloom_sm90``, a thread a key: every position first, all H loads,
+  then the AND;
+- ``interval_sm90``, a thread a query: the shared-memory directory of
+  at most 256 entries of ``lo`` (whole or every 2^s-th), then the
+  segment in global memory, then the three tail tests without the
+  short-circuit;
 - each against the JAX package's Pallas kernel in interpret mode and the
   port's plain version, on the edge cases ``chip_smoke.py`` sweeps on the
   card;
@@ -57,6 +55,7 @@ LANES = 128
 TILE_ROWS = 8 * LANES
 U32 = np.uint32
 M32 = (1 << 32) - 1
+DIR_ENTRIES = 256  # kDirEntries in csrc/interval_sm90.cu
 
 
 def _load(name: str, path: Path):
@@ -66,11 +65,8 @@ def _load(name: str, path: Path):
     return mod
 
 
-# The sweep's cases, and the lane-group search emulation of the cascade
-# tests.
+# The sweep's cases.
 CS = _load("chip_smoke", ROOT / "chip_smoke.py")
-GS = _load("torch_store_sm90_tests",
-           ROOT / "tests" / "test_torch_store_sm90_kernels.py")
 BLOOM_CASES = CS.bloom_cases(np.random.default_rng(17))
 INTERVAL_CASES = CS.interval_cases(np.random.default_rng(18))
 
@@ -150,41 +146,23 @@ def test_reciprocal_modulo_random_pairs():
 
 
 # ---------------------------------------------- bloom_sm90, emulated
-def bloom_sm90_emulation(keys32, words, m_bits, seeds, *, variant: str,
+def bloom_sm90_emulation(keys32, words, m_bits, seeds, *,
                          fault: bool = False):
-    """``bloom_sm90`` on host arrays.  Every variant computes all H
-    positions of a key by ``mod_by`` and loads all H words before the
-    AND; they differ in which thread holds which probe."""
+    """``bloom_sm90`` on host arrays: all H positions of a key by
+    ``mod_by``, all H word loads, then the AND (H = 0: every key may be
+    present)."""
     k = np.asarray(keys32, U32)
     words = np.asarray(words, U32)
     seeds = np.asarray(seeds, U32)
     if fault and len(seeds):
         seeds = seeds[:-1]
-    n, H = len(k), len(seeds)
-
-    def probe_bits(kk, ss):  # (a, b) keys x seeds -> the probed bits
-        p, _ = mod_by(mix32(np.broadcast_to(kk[:, None], (len(kk), len(ss))),
-                            ss[None, :]), m_bits)
-        w = words[(p >> np.uint64(5)).astype(np.int64)]
-        return (w >> (p & np.uint64(31))) & np.uint64(1)
-
-    if variant == "group":
-        # Lane h of 8 probes seeds h, h + 8, ...; a lane past H votes 1.
-        passes = -(-H // 8)
-        lanes = np.ones((n, 8), np.uint64)
-        for h0 in range(passes):
-            sl = seeds[h0 * 8:(h0 + 1) * 8]
-            lanes[:, :len(sl)] &= probe_bits(k, sl)
-        return lanes.all(1).astype(np.int32)
-    if variant == "vec4":
-        out = np.zeros(n, np.int32)
-        for t in range(0, n, 4):  # a thread's four keys (or the tail)
-            kk = k[t:t + 4]
-            out[t:t + 4] = probe_bits(kk, seeds).all(1) if H else 1
-        return out
-    assert variant == "thread"
-    return probe_bits(k, seeds).all(1).astype(np.int32) if H \
-        else np.ones(n, np.int32)
+    if not len(seeds):
+        return np.ones(len(k), np.int32)
+    p, _ = mod_by(mix32(np.broadcast_to(k[:, None], (len(k), len(seeds))),
+                        seeds[None, :]), m_bits)
+    w = words[(p >> np.uint64(5)).astype(np.int64)]
+    bits = (w >> (p & np.uint64(31))) & np.uint64(1)
+    return bits.all(1).astype(np.int32)
 
 
 def bloom_pallas(keys32, words, m_bits, seeds):
@@ -200,40 +178,38 @@ def test_bloom_sm90_emulation_matches_pallas_and_plain(case):
     want = bloom_pallas(k, w, m_bits, seeds)
     plain = np32(bloom_probe_ref(t32(k), t32(w), m_bits=m_bits, seeds=seeds))
     np.testing.assert_array_equal(plain, want)
-    for v in bloom_ops.VARIANTS:
-        np.testing.assert_array_equal(
-            bloom_sm90_emulation(k, w, m_bits, seeds, variant=v), want, v)
+    np.testing.assert_array_equal(bloom_sm90_emulation(k, w, m_bits, seeds),
+                                  want)
 
 
-@pytest.mark.parametrize("variant", sorted(bloom_ops.VARIANTS))
-def test_bloom_sm90_emulation_matches_the_filter(variant):
-    """The paper's filter (10 bits a key, 6 hashes) over 20 K keys: no
-    false negative, and the JAX filter's own verdicts."""
+@pytest.mark.parametrize("hashes", (1, 6, 9))
+def test_bloom_sm90_emulation_matches_the_filter(hashes):
+    """A filter of 10 bits a key (the paper's 6 hashes, one, and past
+    the launcher's H <= 8 templates) over 20 K keys: no false negative,
+    and the JAX filter's own verdicts."""
     rng = np.random.default_rng(5)
     items = rng.integers(0, 1 << 62, 20_000, dtype=np.uint64)
-    bb = JBloomBits(10 * len(items), 6, seed=9)
+    bb = JBloomBits(10 * len(items), hashes, seed=9)
     bb.insert(items)
     keys = np.r_[items[:2000], rng.integers(0, 1 << 62, 2000,
                                             dtype=np.uint64)]
-    got = bloom_sm90_emulation(jfold(keys), bb.words, bb.m_bits, bb.seeds,
-                               variant=variant)
+    got = bloom_sm90_emulation(jfold(keys), bb.words, bb.m_bits, bb.seeds)
     np.testing.assert_array_equal(got.astype(bool), bb.might_contain(keys))
     assert got[:2000].all()
     np.testing.assert_array_equal(got, bloom_pallas(jfold(keys), bb.words,
                                                     bb.m_bits, bb.seeds))
 
 
-@pytest.mark.parametrize("variant", sorted(bloom_ops.VARIANTS))
-def test_bloom_h_minus_one_is_caught_on_absent_keys(variant):
+@pytest.mark.parametrize("seed", (3, 4))
+def test_bloom_h_minus_one_is_caught_on_absent_keys(seed):
     rng = np.random.default_rng(6)
     items = rng.integers(0, 1 << 62, 30_000, dtype=np.uint64)
-    bb = JBloomBits(10 * len(items), 6, seed=3)
+    bb = JBloomBits(10 * len(items), 6, seed=seed)
     bb.insert(items)
     absent = jfold(rng.integers(0, 1 << 62, 8192, dtype=np.uint64))
-    want = bloom_sm90_emulation(absent, bb.words, bb.m_bits, bb.seeds,
-                                variant=variant)
+    want = bloom_sm90_emulation(absent, bb.words, bb.m_bits, bb.seeds)
     wrong = bloom_sm90_emulation(absent, bb.words, bb.m_bits, bb.seeds,
-                                 variant=variant, fault=True)
+                                 fault=True)
     assert (wrong != want).sum() > 0 and (wrong >= want).all()
 
 
@@ -253,7 +229,7 @@ def bisect(a, lo, hi, q, *, lower: bool):
     return lo
 
 
-def dir_shift(m: int, entries: int = interval_ops.DIR_MAX) -> int:
+def dir_shift(m: int, entries: int = DIR_ENTRIES) -> int:
     shift = 0
     while -(-m // (1 << shift)) > entries:
         shift += 1
@@ -269,19 +245,17 @@ def tail(j, k, s, hi, smin, smax):
             & (s < smax[jc])).astype(np.int32)
 
 
-def interval_directory_emulation(k, s, lo, hi, smin, smax, *,
-                                 entries: int = interval_ops.DIR_MAX,
-                                 lower: bool = False):
-    """Design (b): the directory dir[t] = lo[t << shift], t < T <=
-    entries, searched in shared memory; then, when strided, the
-    2^shift-entry segment between two directory entries in global
-    memory (with one entry, a binary search of the whole column)."""
+def interval_sm90_emulation(k, s, lo, hi, smin, smax, *,
+                            lower: bool = False):
+    """The directory dir[t] = lo[t << shift], t < T <= 256, searched in
+    shared memory; then, when strided, the 2^shift-entry segment between
+    two directory entries in global memory; then the tail tests."""
     k, s = (np.asarray(x, U32).astype(np.uint64) for x in (k, s))
     m = len(lo)
-    shift = dir_shift(m, entries)
+    shift = dir_shift(m)
     T = -(-m // (1 << shift))
     d = np.asarray(lo, U32)[::1 << shift][:T]
-    assert len(d) == T <= entries
+    assert len(d) == T <= DIR_ENTRIES
     n = len(k)
     a = bisect(d, np.zeros(n), np.full(n, T), k, lower=lower)
     ans = a.copy()
@@ -293,30 +267,6 @@ def interval_directory_emulation(k, s, lo, hi, smin, smax, *,
                                    lower=lower), a)
     return tail(ans - 1, k, s, *(np.asarray(c, U32).astype(np.uint64)
                                 for c in (hi, smin, smax)))
-
-
-def interval_group_emulation(k, s, lo, hi, smin, smax, *, W: int,
-                             lower: bool = False):
-    """Design (a): ``group_bound<W, true>`` (upper bound) over the whole
-    column, then lanes 0-2 test hi, smin and smax in one round."""
-    k, s = (np.asarray(x, U32) for x in (k, s))
-    n, m = len(k), len(lo)
-    j, _, rounds = GS.group_bound(np.asarray(lo, U32), np.zeros(n, np.int64),
-                                  np.full(n, m), k, W, upper=not lower)
-    assert rounds.max(initial=0) <= GS.round_limit(m, W)
-    return tail(j - 1, k.astype(np.uint64), s.astype(np.uint64),
-                *(np.asarray(c, U32).astype(np.uint64)
-                  for c in (hi, smin, smax)))
-
-
-DESIGNS = {
-    "group 8": lambda *a, **kw: interval_group_emulation(*a, W=8, **kw),
-    "group 32": lambda *a, **kw: interval_group_emulation(*a, W=32, **kw),
-    "search": lambda *a, **kw: interval_directory_emulation(*a, entries=1,
-                                                            **kw),
-    "directory 256": lambda *a, **kw: interval_directory_emulation(
-        *a, entries=256, **kw),
-    "directory 8192": interval_directory_emulation}
 
 
 def interval_jax(k, s, lo, hi, smin, smax):
@@ -332,31 +282,31 @@ def test_interval_sm90_emulation_matches_pallas_and_plain(case):
     want = interval_jax(k, s, *cols)
     plain = np32(interval_query_ref(t32(k), t32(s), *map(t32, cols)))
     np.testing.assert_array_equal(plain, want)
-    for name, emu in DESIGNS.items():
-        np.testing.assert_array_equal(emu(k, s, *cols), want, name)
+    np.testing.assert_array_equal(interval_sm90_emulation(k, s, *cols), want)
 
 
-@pytest.mark.parametrize("m", (64, 8192, 8193, 1 << 15, (1 << 16) + 3))
+@pytest.mark.parametrize("m", (1, 64, 255, 256, 257, 512, 513, 8192, 8193,
+                               1 << 15, (1 << 16) + 3))
 def test_interval_designs_on_registry_levels(m):
-    """Levels staged whole (m <= 8192) and strided (shift 1 to 4), keys
-    at lo, at hi - 1 and at hi, seqs at smin and smax."""
+    """Levels staged whole (m <= 256) and strided (shift 1 to 9, across
+    each boundary of the directory's size), keys at lo, at hi - 1 and at
+    hi, seqs at smin and smax."""
     rng = np.random.default_rng(m)
     cols = CS.disjoint_level(rng, m, max(64, 1 << (m - 1).bit_length()))
     k, s = CS.stab_queries(rng, cols, 1500)
     want = np32(interval_query_ref(t32(k), t32(s), *map(t32, cols)))
     assert 0 < want.sum() < len(want)
-    for name, emu in DESIGNS.items():
-        np.testing.assert_array_equal(emu(k, s, *cols), want, name)
+    np.testing.assert_array_equal(interval_sm90_emulation(k, s, *cols), want)
 
 
-@pytest.mark.parametrize("design", sorted(DESIGNS))
-def test_interval_lower_bound_is_caught_at_area_starts(design):
+@pytest.mark.parametrize("m,pad", ((200, 256), (8000, 8192), (9000, 16384)))
+def test_interval_lower_bound_is_caught_at_area_starts(m, pad):
     rng = np.random.default_rng(11)
-    cols = CS.disjoint_level(rng, 9000, 16384)
-    a = rng.integers(0, 9000, 1024)
+    cols = CS.disjoint_level(rng, m, pad)
+    a = rng.integers(0, m, 1024)
     k, s = cols[0][a], cols[2][a]  # at the area's start, seq at smin
-    want = DESIGNS[design](k, s, *cols)
-    wrong = DESIGNS[design](k, s, *cols, lower=True)
+    want = interval_sm90_emulation(k, s, *cols)
+    wrong = interval_sm90_emulation(k, s, *cols, lower=True)
     assert want.sum() > 0 and not (wrong & want).any()
 
 
@@ -382,7 +332,8 @@ def test_chip_smoke_filter_cases_cover_the_edges():
     pad = cases["pow2-padded, clamped"]
     assert len(pad[2]) == 64 and pad[2][-1] == 0xFFFFFFFF == pad[3][-1]
     assert pad[4][-1] == 0 == pad[5][-1]
-    assert any(dir_shift(len(c[2])) for c in cases.values())
+    shifts = {dir_shift(len(c[2])) for c in cases.values()}
+    assert 0 in shifts and len(shifts) > 2
     assert any(len(c[0]) == 1 for c in cases.values())
     assert {0, 0xFFFFFFFE} <= set(np.concatenate(
         [c[0] for c in cases.values()]).tolist())
@@ -410,8 +361,7 @@ def test_bloom_call_off_the_cpu_takes_bloom_sm90(monkeypatch, n):
     monkeypatch.setattr(bloom_ops, "_launch_simt", old)
     assert bloom_probe(_meta(n), _meta(64), m_bits=2048,
                        seeds=(1, 2)) == "sm90"
-    assert len(new.calls) == 1 and not old.calls
-    assert new.calls[0].get("variant", "thread") == "thread"
+    assert new.calls == [{}] and not old.calls
 
 
 @pytest.mark.parametrize("n,m", ((1, 64), (1024, 8192), (8192, 8192),
@@ -422,27 +372,7 @@ def test_interval_call_off_the_cpu_takes_interval_sm90(monkeypatch, n, m):
     monkeypatch.setattr(interval_ops, "_launch_simt", old)
     cols = (_meta(m),) * 4
     assert interval_query(_meta(n), _meta(n), *cols) == "sm90"
-    assert len(new.calls) == 1 and not old.calls
-    assert new.calls[0] == interval_ops.VARIANTS[interval_ops.kernel_for(n,
-                                                                       m)]
-
-
-@pytest.mark.parametrize("n,m,want", (
-    (10, 8192, "directory"), (1024, 64, "directory"),
-    (1024, 8192, "directory"), (8192, 8192, "directory"),
-    (1024, 8193, "group"), (4096, 1 << 20, "group"),
-    (4097, 1 << 20, "directory"), (8192, 1 << 20, "directory"),
-    (0, 0, "directory")))
-def test_interval_kernel_for_follows_the_card(n, m, want):
-    """The directory at levels whose last steps stay in one line of lo
-    and at large sub-batches; the 32-lane group search otherwise."""
-    assert interval_ops.kernel_for(n, m) == want
-    v = interval_ops.VARIANTS[want]
-    assert v["design"] in interval_ops.DESIGNS
-    if want == "directory":
-        entries = v["entries"]
-        assert entries * 32 == interval_ops.DIR_LINE_AREAS
-        assert v["threads"] <= 256 and entries <= interval_ops.DIR_MAX
+    assert new.calls == [{}] and not old.calls
 
 
 def test_engine_per_level_route_calls_the_public_wrappers(monkeypatch):
@@ -498,27 +428,22 @@ def test_filter_kernels_refuse_cpu_and_non_int32_operands(dtype, err):
             launch(k, k, *cols)
 
 
-def test_filter_kernels_refuse_bad_shapes_and_choices():
+def test_filter_kernels_refuse_bad_shapes():
     k, w = _bloom_operands(torch.int32)
     for m_bits in (0, 8 * 32 + 1, 1 << 32):
         with pytest.raises(ValueError, match="m_bits"):
             bloom_ops._launch_sm90(k, w, m_bits, (1,))
-    with pytest.raises(ValueError, match="variant"):
-        bloom_ops._launch_sm90(k, w, 64, (1,), variant="warp")
     cols = (torch.zeros(64, dtype=torch.int32),) * 3
     with pytest.raises(ValueError, match="areas"):
         interval_ops._launch_sm90(k, k, torch.zeros(63, dtype=torch.int32),
                                   *cols)
     with pytest.raises(ValueError, match="seqs"):
         interval_ops._launch_sm90(k, k[:3], *(cols + cols[:1]))
-    with pytest.raises(ValueError, match="design"):
-        interval_ops._launch_sm90(k, k, *(cols + cols[:1]), design="tree")
 
 
 def test_filter_kernels_build_from_csrc(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(ROOT / "no-such-toolkit"))
     monkeypatch.setattr(native, "_libs", {})
-    assert len(native.KERNELS) == 12
     for name in ("bloom_sm90", "interval_sm90"):
         assert name in native.KERNELS and name in native.LAUNCHES
         src, lib = native._target(name)
@@ -530,5 +455,5 @@ def test_filter_kernels_build_from_csrc(monkeypatch):
     # The first kernels stay in the build for the card's timings.
     assert {"bloom", "interval"} <= set(native.KERNELS)
     assert "kMaxSeeds = 32" in (native.CSRC / "bloom_sm90.cu").read_text()
-    assert "kDirMax = 8192" in (native.CSRC / "interval_sm90.cu").read_text()
-    assert interval_ops.DIR_MAX == 8192
+    assert f"kDirEntries = {DIR_ENTRIES}" in (
+        native.CSRC / "interval_sm90.cu").read_text()

@@ -599,8 +599,8 @@ def test_new_kernels_refuse_cpu_and_non_int32_operands(dtype, err):
 def test_new_kernels_build_from_csrc(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(ROOT / "no-such-toolkit"))
     monkeypatch.setattr(native, "_libs", {})
-    assert len(native.KERNELS) == 12
     for name in ("cascade_sm90", "merge_path_sm90"):
+        assert name in native.KERNELS
         assert name in native.LAUNCHES
         src, lib = native._target(name)
         assert src == native.CSRC / f"{name}.cu" and src.exists()
