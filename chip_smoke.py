@@ -24,6 +24,23 @@ result.  Phases, each of which fails the run on any error:
    continue until every shard's index flushes a level again, and the
    lookups run once more against that state, the profiler reading the
    device's busy time over a few of them.
+2b. Range scans on the same store at the default gates, each held to the
+   plain model (the sorted live keys in [lo, hi) and their values):
+   "slabs", 16 batches of 1024 scans of width 2^16 at uniform starts
+   (``SessionRegistry.live_pages``' slab), and "long", 16 batches of 64
+   scans of width 2^20.  Every launch must be ``merge_path_sm90`` or
+   ``interval_sm90``, as many as the ``KernelCounters`` count (the mixes
+   run again with the gates lowered only if no interval launch came);
+   scans/s, entries/s, batch p50/p99, launches a batch; the profiler's
+   device share and a host profile of one batch per mix; the interval
+   kernel's sub-batches of batch 0 captured for phase 4.
+2c. A second store with ``EngineConfig(scheduler=True)`` takes the same
+   load, lookups, tail deletes and both scan mixes: its level shapes,
+   ``IOStats`` and kernel counters after the load and after the lookups,
+   its lookup results, and its scan results, I/O and counter deltas
+   must equal the inline store's; every launch a Hopper kernel, as many
+   as the gated calls; put-batch p50/p99, load ops/s and the ``sched``
+   counters both ways.
 3. The per-level route: the same lookups with the cascade off must
    return the same results, every per-level launch a ``bloom_sm90`` or
    ``interval_sm90`` one (none of the first ``bloom`` or ``interval``),
@@ -57,6 +74,9 @@ result.  Phases, each of which fails the run on any error:
    lower_bound at area starts (planted faults); then a sweep of edge
    cases (``bloom_cases``, ``interval_cases``) through every kernel.
    Empty kernels on ``merge_path_sm90``'s grid give its floor too.
+   Both interval kernels bit-exact and timed in turns on phase 2b's
+   captured scan sub-batches (rotated, and the smallest, median and
+   largest beside the floor and the bound).
 5. The model stack's slice: zamba2-7b at full width and depth (81
    layers, d_model 3584, random weights from ``--seed``).  In f32, a
    prefill of 2 x 128 tokens must launch the CUDA-core SSD kernel 81
@@ -96,7 +116,9 @@ it the card's name and power limit; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -208,15 +230,22 @@ def model_lookup(keys: np.ndarray, los: np.ndarray, q: np.ndarray):
     return found, np.where(found, q + np.uint64(1), np.uint64(0))
 
 
-def load(eng, keys: np.ndarray, los: np.ndarray) -> float:
+def load(eng, keys: np.ndarray, los: np.ndarray):
+    """The op stream: each put batch, then its range deletes.  Returns
+    the wall seconds and each put batch's latency."""
     t0 = time.perf_counter()
+    put_lat = []
     for b in range(los.shape[0]):
         k = keys[b * PUT_BATCH:(b + 1) * PUT_BATCH]
+        t1 = time.perf_counter()
         eng.put_batch(k, k + np.uint64(1))
-        lo = los[b]
-        eng.range_delete_batch(list(zip(lo.tolist(),
-                                        (lo + RANGE_LEN).tolist())))
-    return time.perf_counter() - t0
+        put_lat.append(time.perf_counter() - t1)
+        range_deletes(eng, los[b])
+    return time.perf_counter() - t0, put_lat
+
+
+def range_deletes(eng, lo: np.ndarray) -> None:
+    eng.range_delete_batch(list(zip(lo.tolist(), (lo + RANGE_LEN).tolist())))
 
 
 def lookups(eng, batches: list[np.ndarray]):
@@ -329,7 +358,8 @@ def environment() -> tuple[str, str]:
     return smi, torch.cuda.get_device_name(0)
 
 
-def build_slice(n_keys: int, shards: int, seed: int, device: str):
+def build_slice(n_keys: int, shards: int, seed: int, device: str,
+                **config):
     from repro_torch.core import GloranConfig, RAEConfig
     from repro_torch.engine import Engine, EngineConfig
     from repro_torch.lsm import LSMConfig
@@ -338,7 +368,7 @@ def build_slice(n_keys: int, shards: int, seed: int, device: str):
                  lsm_config=LSMConfig(),
                  gloran_config=GloranConfig(
                      eve=RAEConfig(key_universe=UNIVERSE)),
-                 config=EngineConfig(device=device))
+                 config=EngineConfig(device=device, **config))
     return eng, keys, los
 
 
@@ -352,8 +382,7 @@ def tail_deletes(eng, los: np.ndarray) -> np.ndarray:
         assert len(tail) < 200, "index never flushed"
         lo = np.random.default_rng(1000 + len(tail)).integers(
             0, UNIVERSE - RANGE_LEN, RANGES_PER_BATCH, dtype=np.uint64)
-        eng.range_delete_batch(list(zip(lo.tolist(),
-                                        (lo + RANGE_LEN).tolist())))
+        range_deletes(eng, lo)
         tail.append(lo)
     return np.concatenate([los, np.stack(tail)]) if tail else los
 
@@ -381,14 +410,15 @@ def check_cascade_path(eng, kc0, kc1, launches: dict, shards) -> list:
     return views
 
 
-def device_busy(eng, batches) -> str:
-    """Device time of the kernels over a few lookup batches, from the
-    profiler, against the wall time of those batches."""
+def device_busy(eng, batches, run=None) -> str:
+    """Device time of the kernels over a few batches (lookups, or
+    ``run(eng, batches)``), from the profiler, against the wall time of
+    those batches."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        lookups(eng, batches)
+        (run or lookups)(eng, batches)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages()
@@ -401,6 +431,301 @@ def device_busy(eng, batches) -> str:
             f"{busy:.1f} us ({100 * busy / wall_us:.3f}%); "
             + "; ".join(f"{e.key[:40]} {e.device_time_total:.1f} us / "
                         f"{e.count}" for e in top))
+
+
+def latency_ms(lat: list) -> str:
+    ms = sorted(1e3 * x for x in lat)
+    return (f"{len(ms)} put batches p50 {statistics.median(ms):.3f} ms, "
+            f"p99 {ms[int(0.99 * (len(ms) - 1))]:.3f} ms")
+
+
+def store_snapshot(eng) -> dict:
+    """What the inline and the scheduler store must share at a point of
+    the op stream: level shapes, every shard's ``IOStats``, the kernel
+    counters."""
+    return {"levels": [[len(l) if l is not None else 0
+                        for l in sh.tree.levels] for sh in eng.shards],
+            "io": [sh.tree.io.snapshot() for sh in eng.shards],
+            "kernels": eng.kernel_counters.snapshot()}
+
+
+def assert_same_snapshot(got: dict, want: dict, where: str) -> None:
+    for key in want:
+        if got[key] != want[key]:
+            raise AssertionError(f"scheduler store differs from the inline "
+                                 f"one in {key} {where}: {got[key]} vs "
+                                 f"{want[key]}")
+
+
+# ---------------------------------------------------------- range scans
+SCAN_MIXES = {  # name: (batches, scans a batch, width)
+    "slabs": (16, 1024, 1 << 16),  # SessionRegistry.live_pages' slab
+    "long": (16, 64, 1 << 20),
+}
+
+
+def live_keys(keys: np.ndarray, los: np.ndarray) -> np.ndarray:
+    """The plain model's sorted live keys after the op stream (each
+    holding its key + 1), made like ``model_lookup``."""
+    uk = np.unique(keys)
+    found, _ = model_lookup(keys, los, uk)
+    return uk[found]
+
+
+def make_scans(seed: int, batches: int, size: int, width: int) -> list:
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, UNIVERSE - width, (batches, size), dtype=np.uint64)
+    return [list(zip(b.tolist(), (b + width).tolist())) for b in lo]
+
+
+def check_scans(res, ranges, live: np.ndarray) -> int:
+    """Each scan equals the model's live keys in [lo, hi) with their
+    values; returns the entries."""
+    entries = 0
+    for (k, v), (lo, hi) in zip(res, ranges):
+        a, b = np.searchsorted(live, [lo, hi])
+        want = live[a:b]
+        if not (np.array_equal(k, want) and np.array_equal(
+                v, want + np.uint64(1))):
+            raise AssertionError(f"scan [{lo}, {hi}): {len(k)} entries vs "
+                                 f"the model's {len(want)}")
+        entries += len(k)
+    return entries
+
+
+def scan_digest(res) -> str:
+    h = hashlib.sha256()
+    for k, v in res:
+        h.update(np.int64(len(k)).tobytes())
+        h.update(k.tobytes())
+        h.update(v.tobytes())
+    return h.hexdigest()
+
+
+def scan_mix(eng, name: str, batches: list, live, card) -> dict:
+    """One mix's batches through ``Engine.range_scan_batch``, each held
+    to the model; the window's launches must be ``merge_path_sm90`` and
+    ``interval_sm90`` only, as many as the gated calls."""
+    from repro_torch.kernels import native
+    io0 = [sh.tree.io.snapshot() for sh in eng.shards]
+    kc0 = eng.kernel_counters
+    native.reset_launches()
+    lat, digests, entries = [], [], 0
+    for b in batches:
+        t0 = time.perf_counter()
+        res = eng.range_scan_batch(b)
+        lat.append(time.perf_counter() - t0)
+        entries += check_scans(res, b, live)
+        digests.append(scan_digest(res))
+    launches = dict(native.LAUNCHES)
+    kc1 = eng.kernel_counters
+    calls = {"merge_path_sm90": kc1.merge_calls - kc0.merge_calls,
+             "interval_sm90": kc1.interval_calls - kc0.interval_calls}
+    others = {k: v for k, v in launches.items() if v and k not in calls}
+    assert not others, f"scans launched {others}"
+    assert all(launches[k] == v for k, v in calls.items()), (launches,
+                                                             calls)
+    n = sum(len(b) for b in batches)
+    total = sum(lat)
+    ms = sorted(1e3 * x for x in lat)
+    log(f"scans {name}: {len(batches)} batches of {len(batches[0])} "
+        f"(width {batches[0][0][1] - batches[0][0][0]}), {entries} entries "
+        f"({entries / n:.1f} a scan) in {total:.3f} s = {n / total:.1f} "
+        f"scans/s, {entries / total:.1f} entries/s; batch p50 "
+        f"{statistics.median(ms):.3f} ms, p99 "
+        f"{ms[int(0.99 * (len(ms) - 1))]:.3f} ms; launches a batch "
+        f"{json.dumps({k: v / len(batches) for k, v in calls.items()})}; "
+        f"merge keys {kc1.merge_keys - kc0.merge_keys}, interval stabs "
+        f"{kc1.interval_queries - kc0.interval_queries}; results equal the "
+        f"model {card}")
+    io1 = [sh.tree.io.snapshot() for sh in eng.shards]
+    k0 = kc0.snapshot()
+    return {"digests": digests, "launches": calls,
+            "io": [{k: b[k] - a[k] for k in ("reads", "writes")}
+                   for a, b in zip(io0, io1)],
+            "kernels": {k: v - k0[k] for k, v in kc1.snapshot().items()
+                        if isinstance(v, int)}}
+
+
+def capture_stabs(eng, ranges) -> list:
+    """The interval kernel's inputs of one scan batch, as the executors
+    hand them over (outside every counted window)."""
+    from repro_torch.engine import executor
+    stabs = []
+    real = executor.interval_query
+
+    def spy(*args):
+        stabs.append(args)
+        return real(*args)
+
+    executor.interval_query = spy
+    try:
+        eng.range_scan_batch(ranges)
+    finally:
+        executor.interval_query = real
+    return stabs
+
+
+def scan_profile(eng, ranges, top: int = 6) -> str:
+    """Where one scan batch's host time goes: the batch run serially on
+    this thread under cProfile (which inflates Python calls), the
+    functions with the most own time."""
+    import cProfile
+    import pstats
+    from repro_torch.engine import OpBatch
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(lambda: eng.submit(OpBatch.range_scans(ranges),
+                                    pipeline=False).scan_results())
+    wall = time.perf_counter() - t0
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return (f"profiled serial wall {wall:.3f} s; own time: " + "; ".join(
+        f"{Path(f).name}:{ln}({fn}) {tt:.3f} s / {nc}"
+        for (f, ln, fn), (_, nc, tt, _, _) in rows))
+
+
+@contextlib.contextmanager
+def gates_lowered(eng):
+    """The interval gates at 1, as phase 3 sets them, for a while."""
+    saved = eng.config.kernel_min_batch, eng.config.kernel_min_areas
+    eng.config.kernel_min_batch = eng.config.kernel_min_areas = 1
+    try:
+        yield
+    finally:
+        eng.config.kernel_min_batch, eng.config.kernel_min_areas = saved
+
+
+def scan_phase(eng, live: np.ndarray, card: str) -> dict:
+    """Phase 2b: both scan mixes on the store at the default gates (a
+    second pass with the gates lowered only if no interval launch came),
+    the device's busy share and a host profile of one batch per mix, and
+    the interval kernel's captured sub-batches."""
+    mixes = {name: make_scans(2000 + i, *spec)
+             for i, (name, spec) in enumerate(SCAN_MIXES.items())}
+    out = {"mixes": {}, "stabs": [], "batches": mixes,
+           "launches": {"merge_path_sm90": 0, "interval_sm90": 0}}
+    for name, batches in mixes.items():
+        mix = scan_mix(eng, name, batches, live, card)
+        out["mixes"][name] = mix
+        for k, v in mix["launches"].items():
+            out["launches"][k] += v
+    lowered = not out["launches"]["interval_sm90"]
+    if lowered:
+        with gates_lowered(eng):
+            for name, batches in mixes.items():
+                mix = scan_mix(eng, f"{name}, gates lowered", batches, live,
+                               card)
+                for k, v in mix["launches"].items():
+                    out["launches"][k] += v
+        log("the default gates gave interval_sm90 no scan launch; the "
+            f"lowered-gate pass launched it "
+            f"{out['launches']['interval_sm90']} times")
+    for name, batches in mixes.items():
+        with gates_lowered(eng) if lowered else contextlib.nullcontext():
+            stabs = capture_stabs(eng, batches[0])
+        out["stabs"] += stabs
+        ns = sorted(x[0].numel() for x in stabs)
+        log(f"scans {name}: {len(stabs)} interval sub-batches in batch 0, n "
+            f"{ns[:1]}..{ns[-1:]}, areas "
+            f"{sorted({x[2].numel() for x in stabs})}")
+        log(f"scans {name}, device: " + device_busy(
+            eng, batches[1:3], run=lambda e, bs: [e.range_scan_batch(b)
+                                                  for b in bs]))
+        log(f"scans {name}, host: " + scan_profile(eng, batches[3]))
+    assert out["stabs"], "no interval sub-batch to time"
+    return out
+
+
+def scan_interval_times(eng, stabs, card) -> dict:
+    """``interval_sm90`` and the first ``interval`` kernel bit-exact
+    against the plain version on every captured scan sub-batch, then
+    timed in turns: rotated over them all, and on the smallest, median
+    and largest, each beside the launch floor and its bytes bound."""
+    from repro_torch.kernels.interval import ops as iops
+    from repro_torch.kernels.interval.ops import interval_query
+    from repro_torch.kernels.interval.ref import interval_query_ref
+    for x in stabs:
+        want = interval_query_ref(*x)
+        assert same(iops._launch_simt(*x), want), "interval on a scan"
+        assert same(interval_query(*x), want), "interval_sm90 on a scan"
+    order = sorted(stabs, key=lambda x: x[0].numel())
+    times = {"rotated": in_turns(rotate(iops._launch_simt, stabs),
+                                 rotate(interval_query, stabs))}
+    for tag, x in (("smallest", order[0]), ("median", order[len(order) // 2]),
+                   ("largest", order[-1])):
+        n, m = x[0].numel(), x[2].numel()
+        t = in_turns(lambda: iops._launch_simt(*x),
+                     lambda: interval_query(*x))
+        t["floor"] = time_kernel_ms(lambda: iops._launch_floor(n, x[0].device))
+        by = 12 * n + SECTOR * (min(search_sectors(m, n), m // 8 + 1) + 3 * n)
+        t.update(n=n, areas=m, bound=by / HBM_BYTES_PER_S * 1e3)
+        times[tag] = t
+    ns = [x[0].numel() for x in order]
+    log(f"interval on the scans' {len(stabs)} captured sub-batches (n "
+        f"{ns[0]}..{ns[-1]}, median {ns[len(ns) // 2]}), both bit-exact; ms "
+        f"as old (interval) / new (interval_sm90) in turns: "
+        f"{json.dumps(times)} {card}")
+    return times
+
+
+def scheduler_phase(keys, los, tail, batches, live, inline, scans,
+                    card) -> dict:
+    """Phase 2c: a second store with ``scheduler=True`` takes the same
+    load, lookups, tail deletes and scan mixes; its level shapes,
+    ``IOStats``, kernel counters, lookup results and scan results must
+    equal the inline store's at each point, and every launch be a Hopper
+    kernel, as many as the gated calls.  Returns its launches."""
+    from repro_torch.kernels import native
+    eng, _, _ = build_slice(len(keys), 8, 0, "cuda", scheduler=True)
+    native.reset_launches()
+    load_s, put_lat = load(eng, keys, los)
+    eng.drain()
+    assert_same_snapshot(store_snapshot(eng), inline["load"],
+                         "after the load")
+    n_ops = len(keys) + los.size
+    sched = eng.stats()["sched"]
+    log(f"load, scheduler on: {load_s:.3f} s = {n_ops / load_s:.1f} ops/s; "
+        f"{latency_ms(put_lat)}; sched {json.dumps(sched)} {card}")
+    log(f"load, scheduler off: {inline['load_s']:.3f} s = "
+        f"{n_ops / inline['load_s']:.1f} ops/s; "
+        f"{latency_ms(inline['put_lat'])} {card}")
+    first, _ = lookups(eng, batches)
+    for lo in tail:
+        range_deletes(eng, lo)
+    second, lat = lookups(eng, batches)
+    for got, want in zip(first + second, inline["results"][0]
+                         + inline["results"][1]):
+        assert all(np.array_equal(g, w) for g, w in zip(got, want)), \
+            "scheduler store's lookups differ from the inline store's"
+    assert_same_snapshot(store_snapshot(eng), inline["lookups"],
+                         "after the lookups")
+    report_lookups("lookups, scheduler on (results equal the inline "
+                   "store's)", lat, card)
+    lookup_launches = dict(native.LAUNCHES)  # the load's and lookups'
+    for name, mix in scans["mixes"].items():
+        got = scan_mix(eng, f"{name}, scheduler on", scans["batches"][name],
+                       live, card)
+        for key in ("digests", "io", "kernels"):
+            assert got[key] == mix[key], \
+                f"scheduler store's {name} scans differ in {key}"
+    launches = dict(native.LAUNCHES)
+    launches = {k: lookup_launches[k] + launches[k] for k in launches}
+    kc = eng.kernel_counters
+    assert launches["merge_path_sm90"] == kc.merge_calls > 0 and \
+        launches["merge_rank"] == 0, (launches, kc)
+    assert launches["cascade_sm90"] == kc.cascade_calls and \
+        launches["cascade"] == 0, (launches, kc)
+    assert not {k: v for k, v in launches.items() if v and k not in (
+        "merge_path_sm90", "cascade_sm90", "interval_sm90")}, launches
+    sched = eng.stats()["sched"]
+    assert sched["flush_jobs"] > 0 and sched["compaction_debt"] == 0, sched
+    log(f"scheduler store equals the inline store (level shapes, IOStats, "
+        f"kernel counters, lookups, both scan mixes); its launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; sched "
+        f"{json.dumps(sched)}")
+    eng.close()
+    return launches
 
 
 def store_phases(card: str) -> list[dict]:
@@ -416,16 +741,18 @@ def store_phases(card: str) -> list[dict]:
     torch.cuda.reset_peak_memory_stats()
     kc_start = eng.kernel_counters
     native.reset_launches()
-    load_s = load(eng, keys, los)
+    load_s, put_lat = load(eng, keys, los)
     load_launches = dict(native.LAUNCHES)
+    snap_load = store_snapshot(eng)
     kc0 = eng.kernel_counters
     results, lat = lookups(eng, batches)
+    first_results = results
     main_launches = dict(native.LAUNCHES)
     kc1 = eng.kernel_counters
     n_ops = len(keys) + los.size
     log(f"load: {len(keys)} puts + {los.size} range deletes "
         f"({100 * los.size / n_ops:.3f}% range deletes) in {load_s:.3f} s "
-        f"= {n_ops / load_s:.1f} ops/s; launches "
+        f"= {n_ops / load_s:.1f} ops/s; {latency_ms(put_lat)}; launches "
         f"{json.dumps(load_launches)} {card}")
     report_lookups("lookups", lat, card)
     check_results(results, batches, keys, los)
@@ -467,7 +794,25 @@ def store_phases(card: str) -> list[dict]:
     main_launches["cascade_sm90"] += main2["cascade_sm90"]
     log(f"results equal the model; GLORAN areas per shard {areas}; "
         f"cascade_sm90 launches {main2['cascade_sm90']}")
+    inline = {"load": snap_load, "lookups": store_snapshot(eng),
+              "results": (first_results, results), "load_s": load_s,
+              "put_lat": put_lat}
     log(device_busy(eng, batches[:4]))
+
+    # 2b. range scans on the same store at the default gates, and 2c.
+    # a second store with the background scheduler, held to this one.
+    live = live_keys(keys, los_all)
+    scans = scan_phase(eng, live, card)
+    sched_launches = scheduler_phase(keys, los, los_all[len(los):], batches,
+                                     live, inline, scans, card)
+    path = {"merge_path_sm90": {"load": main_launches["merge_path_sm90"],
+                                "scans": scans["launches"]["merge_path_sm90"],
+                                "scheduler store": sched_launches[
+                                    "merge_path_sm90"]},
+            "cascade_sm90": {"lookups": main_launches["cascade_sm90"],
+                             "scheduler store lookups": sched_launches[
+                                 "cascade_sm90"]},
+            "interval_sm90": {"scans": scans["launches"]["interval_sm90"]}}
 
     # 3. the per-level route on the same store: cascade off, and every
     # probe of a level takes a kernel.  The default gates would keep the
@@ -498,9 +843,21 @@ def store_phases(card: str) -> list[dict]:
     log(f"per-level launches {json.dumps(route_launches)}, equal to the "
         f"gated calls (bloom {bloom_calls}, interval {interval_calls})")
 
-    # 4. each kernel against its plain version at the path's shapes
+    path["interval_sm90"]["per-level route"] = route_launches["interval_sm90"]
+
+    # 4. each kernel against its plain version at the path's shapes; the
+    # launches of a Hopper kernel are those of every path that ran it.
+    for name, counts in path.items():
+        launches = main_launches if name != "interval_sm90" \
+            else route_launches
+        launches[name] = sum(counts.values())
     records = kernel_checks(eng, views, batches, main_launches,
                             route_launches, card)
+    by_name = {r["name"]: r for r in records}
+    for name, counts in path.items():
+        by_name[name]["path_launches"] = counts
+    by_name["interval_sm90"]["scan_ms"] = scan_interval_times(
+        eng, scans["stabs"], card)
     eng.close()
     return records
 

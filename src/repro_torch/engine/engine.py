@@ -5,14 +5,15 @@ typed ``OpBatch`` into per-shard ``ShardPlan``s (vectorized routing,
 range clipping, same-kind run grouping), ``Engine.submit`` launches
 those plans — concurrently across shards when pipelining is on, serially
 in shard order when off — and the returned ``PendingBatch`` merges
-results back in request order.  ``get_batch``, ``put_batch`` and the
-other conveniences are thin wrappers that build an ``OpBatch`` and block
-on ``submit``.
+results back in request order.  ``get_batch``, ``range_scan_batch``,
+``execute`` and the other conveniences are thin wrappers that build an
+``OpBatch`` and block on ``submit``.
 
 Every shard keeps its filter state on ``EngineConfig.device`` and runs
-its kernels there.  This package serves writes and point lookups; range
-scans, durability, worker processes and background compaction raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+its kernels there.  This package serves writes, point lookups and range
+scans, with background compaction on or off; durability and worker
+processes raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -26,14 +27,16 @@ import numpy as np
 from ..core.gloran import GloranConfig
 from ..device import resolve_device
 from ..lsm import LSMConfig, LSMTree
+from ..lsm.merge import merge_runs
+from ..lsm.scheduler import CompactionScheduler
 from ..obs import MetricsRegistry, span
 from .executor import EngineConfig, ShardExecutor
 from .pending import PendingBatch
-from .plan import OP_RANGE_SCAN, OpBatch, Planner
+from .plan import OpBatch, Planner
 from .router import ShardRouter
 from .stats import EngineStats, KernelCounters, merge_io_snapshots
 
-_SCANS = "Queue A item 6 (range scans through the engine)"
+_EMPTY_KV = (np.zeros(0, np.uint64), np.zeros(0, np.uint64))
 
 
 def _merge_cache_snaps(snaps: list) -> dict:
@@ -56,13 +59,14 @@ def _merge_cache_snaps(snaps: list) -> dict:
 
 
 class Engine:
-    """Sharded, batched execution of writes and point lookups.
+    """Sharded, batched execution of point AND range ops.
 
     Public surface (all batch results come back in request order):
 
       submit(OpBatch) -> PendingBatch          plan + launch, collect later
       put_batch / delete_batch / get_batch     vectorized point ops
       put / delete / get                       scalar conveniences
+      range_scan_batch / range_scan            sorted live entries per range
       range_delete_batch / range_delete        strategy-dispatched deletes
       execute(ops)                             one mixed tuple op stream
       drain()                                  join all in-flight batches
@@ -74,6 +78,17 @@ class Engine:
     batches in submit order, and ``submit`` returns before execution
     finishes.  ``pipeline=False`` runs the identical plans inline in
     shard order; results are byte-identical either way.
+
+    Range ops route like point ops: range-partitioned shards serve only
+    the overlapping slabs (clipped), hash-partitioned shards fan out and
+    the per-shard results — disjoint because every key owns exactly one
+    shard — are merged back into one sorted view per request.
+
+    Background compaction (``EngineConfig.scheduler``): every shard gets
+    a ``CompactionScheduler``; full memtables seal and their flushes and
+    cascades run at each plan's start, at ``drain`` / ``flush`` /
+    ``stats`` / ``close``, or under backpressure, byte-identical to the
+    inline engine.
     """
 
     def __init__(self, num_shards: int = 1, strategy: str = "gloran",
@@ -96,6 +111,12 @@ class Engine:
                                   gloran_config=gloran_config),
                           self.config, self.device)
             for _ in range(self.num_shards)]
+        self.background = bool(self.config.scheduler)
+        if self.background:
+            for sh in self.shards:
+                sh.attach_scheduler(CompactionScheduler(
+                    sh.tree, max_frozen=self.config.max_frozen,
+                    tombstone_trigger=self.config.tombstone_trigger))
         self.stats_ = EngineStats()
         self.metrics = MetricsRegistry()
         self.pipeline_default = bool(self.config.pipeline)
@@ -114,10 +135,6 @@ class Engine:
         any in-flight pipelined work so the per-shard op order stays the
         submit order.
         """
-        if (batch.kinds == OP_RANGE_SCAN).any():
-            raise NotImplementedError(
-                f"range scans are not ported to repro_torch yet: "
-                f"ROADMAP {_SCANS}")
         if pipeline is None:
             pipeline = self.pipeline_default
         pipeline = bool(pipeline) and self.num_shards > 1
@@ -139,13 +156,19 @@ class Engine:
             return pending
 
     def drain(self) -> None:
-        """Block until every in-flight submitted batch has collected."""
+        """Block until every in-flight submitted batch has collected,
+        then run any due background scheduler jobs — a drained engine
+        is fully caught up (flushes published, cascades applied),
+        exactly the state the inline path would be in."""
         while True:
             with self._inflight_lock:
                 if not self._inflight:
                     break
                 pending = self._inflight[0]
             pending.wait()
+        if self.background:
+            for sh in self.shards:
+                sh.run_scheduler()
 
     def _shard_pools(self) -> list[ThreadPoolExecutor]:
         """One single-worker pool per shard: cross-shard parallelism with
@@ -221,7 +244,8 @@ class Engine:
 
     def close(self) -> None:
         """Deterministic shutdown (idempotent): drain in-flight batches
-        and join the per-shard worker pools."""
+        and pending scheduler jobs, and join the per-shard worker
+        pools."""
         self.drain()
         if self._pools is not None:
             for p in self._pools:
@@ -246,24 +270,56 @@ class Engine:
         return int(vals[0]) if found[0] else None
 
     def range_scan(self, lo: int, hi: int):
-        raise NotImplementedError(
-            f"range scans are not ported to repro_torch yet: "
-            f"ROADMAP {_SCANS}")
+        """All live entries in [lo, hi) across shards, sorted by key."""
+        return self.range_scan_batch([(lo, hi)])[0]
 
     def range_scan_batch(self, ranges) -> list:
-        raise NotImplementedError(
-            f"range scans are not ported to repro_torch yet: "
-            f"ROADMAP {_SCANS}")
+        """Execute a batch of range scans; one sorted (keys, vals) pair
+        per requested [lo, hi), in request order.
+
+        Each shard serves its clipped visits in ONE pass over its tree
+        (``LSMTree.range_scan_batch``: shared memtable snapshot,
+        vectorized slice bounds, sorted-view merges on the merge-rank
+        kernel hook, batched validity filtering on the interval kernel
+        hook).  Per-request results from range-partitioned shards
+        concatenate in slab order (already globally sorted);
+        hash-partitioned shards return disjoint sorted sets that are
+        merged as sorted views.
+        """
+        return self.submit(OpBatch.range_scans(ranges)).scan_results()
+
+    def _merge_scan_parts(self, parts: list) -> tuple[np.ndarray,
+                                                      np.ndarray]:
+        """One request's per-shard (keys, vals) parts -> one sorted pair.
+
+        Shards are visited in ascending order, so under range
+        partitioning the parts are consecutive key slabs and concatenate
+        sorted; under hash partitioning each key lives on exactly one
+        shard, so the parts are disjoint sorted sets and a host
+        sorted-view merge (no re-sort, no kernel) is exact.
+        """
+        if not parts:
+            return _EMPTY_KV
+        if len(parts) == 1:
+            return parts[0]
+        if self.router.partition == "range":
+            return (np.concatenate([p[0] for p in parts]),
+                    np.concatenate([p[1] for p in parts]))
+        return merge_runs(parts, empty=_EMPTY_KV)
 
     # --------------------------------------------------------- mixed ops
     def execute(self, ops: list[tuple]) -> list:
         """Execute a mixed tuple op stream; results align with request
-        order: gets yield value-or-None, writes yield None.
+        order: gets yield value-or-None, range scans yield a sorted
+        (keys, vals) pair, writes yield None.
 
         ``ops`` entries: ``("put", key, val)``, ``("delete", key)``,
-        ``("get", key)``, ``("range_delete", lo, hi)``.  Consecutive
-        same-kind ops destined for the same shard execute as one
-        vectorized sub-batch; per-shard arrival order is preserved.
+        ``("get", key)``, ``("range_delete", lo, hi)``,
+        ``("range_scan", lo, hi)``.  Consecutive same-kind ops destined
+        for the same shard execute as one vectorized sub-batch;
+        per-shard arrival order is preserved.  Range ops visit every
+        owning shard; a scan's per-shard parts are merged back into one
+        sorted view.
         """
         return self.submit(OpBatch.from_ops(ops)).results()
 
@@ -337,6 +393,17 @@ class Engine:
             m.absorb("staging", {k: v for k, v in
                                  self.stats_.staging.items()
                                  if k != "per_shard"})
+        # Background-scheduler health: job/stall counters + compaction
+        # debt across the fleet (``sched.*`` metrics).
+        scheds = [f["sched"] for f in fulls if f["sched"] is not None]
+        if scheds:
+            agg: dict = {}
+            for c in scheds:
+                for k, v in c.items():
+                    agg[k] = agg.get(k, 0) + v
+            agg["stall_seconds"] = round(agg["stall_seconds"], 6)
+            out["sched"] = agg
+            m.absorb("sched", agg)
         lsm_m: dict = {}
         for f in fulls:
             for i, b in f["lsm"]["compaction_bytes"].items():

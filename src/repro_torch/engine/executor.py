@@ -25,9 +25,16 @@ read path (``LSMTree.get_batch``) with hooks swapped in:
                are clamped into u32 working space (exact for u32-range
                queries).
 
-Compactions order their two-run merges through the ``kernels.merge``
-merge-rank kernel (``compaction_rank_fn``), bit-exact with the host
-searchsorted pair.
+Range scans run the tree's one-pass ``range_scan_batch`` with the same
+``validity_fn`` (GLORAN validity of every scan candidate, one
+``interval_query`` launch a DR-tree level when gated in), the block
+cache, and ``rank_fn``: each two-way merge round of a scan's sorted
+views takes its output positions from the ``kernels.merge`` merge-rank
+kernel once the round is big enough to pay for a launch.  Compactions
+order their two-run merges through the same hook
+(``compaction_rank_fn``), bit-exact with the host searchsorted pair —
+inline, or as background jobs of an attached ``CompactionScheduler``
+drained at the start of every plan.
 
 The control flow stays single-sourced in ``LSMTree`` / ``GloranIndex`` /
 ``LSMDRTree``; hooks only replace HOW a verdict is computed, never what
@@ -53,15 +60,14 @@ from ..lsm.scheduler import level_rt_density
 from ..lsm.tree import CascadeVerdict, LSMTree
 from ..obs import span
 from .cache import BlockCache
-from .plan import KIND_NAMES, OP_DELETE, OP_GET, OP_PUT, ShardPlan
+from .plan import (KIND_NAMES, OP_DELETE, OP_GET, OP_PUT, OP_RANGE_SCAN,
+                   ShardPlan)
 from .registry import DeviceFilterRegistry, _U32_LIMIT
 from .stats import KernelCounters
 
 _DEFERRED = {
-    "wal_dir": "Queue A item 8 (durable/)",
-    "procs": "Queue A item 10 (engine/procpool.py)",
-    "scheduler": "Queue A item 7 (background compaction wiring)",
-    "tombstone_trigger": "Queue A item 7 (background compaction wiring)",
+    "wal_dir": "queue A: durable/",
+    "procs": "queue A: engine/procpool.py",
 }
 
 
@@ -81,12 +87,33 @@ class EngineConfig:
     kernel_min_areas: int = 64  # DR-tree level size worth a launch
     kernel_min_filter: int = 512  # SSTable entries worth a launch
     kernel_min_merge: int = 1024  # total keys in a 2-way merge round
+    # Timed-I/O mode: seconds a shard worker sleeps per simulated I/O
+    # block its plan step charged (0.0 = off: I/O stays count-only).
+    # With it on, measured wall includes the store's modeled device
+    # waits, and those waits overlap across pipelined shard workers
+    # (sleep releases the GIL) as concurrent NVMe queues would.
+    io_wait_s: float = 0.0
+    # Background delete-aware compaction (lsm/scheduler.py); off is the
+    # inline flush path.  With it on, a full memtable seals into an
+    # immutable snapshot and flush + cascade run as background jobs at
+    # the deterministic drain points, byte-identical to inline.  Like
+    # ``pipeline``, the default is this field's: no environment
+    # variable is read.
+    scheduler: bool = False
+    # Soft limit on sealed-but-unflushed memtables per shard; sealing
+    # past it backpressures (runs due jobs on the sealing thread,
+    # counted as a stall).
+    max_frozen: int = 4
+    # Lethe-style proactive compaction trigger: a level whose estimated
+    # range-tombstone density reaches this fraction is compacted down
+    # ahead of overflow (None = capacity-driven only; proactive
+    # compaction intentionally diverges from the inline level shapes to
+    # reclaim GLORAN garbage early).  Needs ``scheduler``.
+    tombstone_trigger: float | None = None
     # Not in this package yet; setting one raises NotImplementedError
     # naming the ROADMAP item that ports it.
     wal_dir: str | None = None
     procs: int | None = None
-    scheduler: bool | None = None
-    tombstone_trigger: float | None = None
 
     def __post_init__(self) -> None:
         for name, item in _DEFERRED.items():
@@ -108,9 +135,26 @@ class ShardExecutor:
         # the per-level kernel route (per-SSTable pieces + GLORAN
         # interval views, structurally invalidated).
         self.registry = DeviceFilterRegistry(device, self.kernels)
+        # Background compaction scheduler (None = inline flush path).
+        self.scheduler = None
         # Compactions route their two-run merge through the gated
-        # merge-rank kernel closure.
+        # merge-rank kernel closure (the same hook the scans use).
         tree.compaction_rank_fn = self._rank_fn()
+
+    def attach_scheduler(self, scheduler) -> None:
+        """Enable background mode: the tree seals instead of flushing
+        inline, and this executor drains the job queue at every plan
+        start / explicit flush (the deterministic points that keep
+        results byte-identical to the inline path)."""
+        self.scheduler = scheduler
+        self.tree.scheduler = scheduler
+        self.tree.io.enable_locking()
+
+    def run_scheduler(self) -> None:
+        """Drain due background jobs (flushes, cascades, proactive
+        compactions) on the calling thread."""
+        if self.scheduler is not None and self.scheduler.has_work():
+            self.scheduler.run_due()
 
     # ----------------------------------------------------------- writes
     def put_batch(self, keys: np.ndarray, vals: np.ndarray) -> None:
@@ -127,8 +171,12 @@ class ShardExecutor:
         self.tree.range_delete_arrays(los, his)
 
     def flush(self) -> None:
-        """Flush the shard's memtable (and LRR buffer) to level 0."""
+        """Flush the shard's memtable (and LRR buffer) to level 0; with
+        a scheduler, synchronously: the sealed snapshot and every job
+        it queues have run when this returns."""
         self.tree.flush()
+        if self.scheduler is not None:
+            self.scheduler.drain()
 
     # ------------------------------------------------ uniform surface
     @property
@@ -157,6 +205,8 @@ class ShardExecutor:
             "cache": self.cache.snapshot(),
             "staging": (tree.gloran.buffer_snapshot()
                         if tree.gloran is not None else None),
+            "sched": (self.scheduler.counters()
+                      if self.scheduler is not None else None),
             "lsm": {
                 "compaction_bytes": {int(i): int(b) for i, b in
                                      tree.compaction_bytes.items()},
@@ -174,28 +224,50 @@ class ShardExecutor:
 
         Each ``PlanStep`` is one vectorized sub-batch on this shard's
         batched paths.  Returns ``(payloads, wall_seconds)`` where
-        payloads carry the get steps' ``(idx, found, vals)`` for
+        payloads carry the result-bearing steps — ``(OP_GET, idx, found,
+        vals)`` and ``(OP_RANGE_SCAN, idx, [(keys, vals), ...])`` — for
         the engine's deterministic merge-back; ``wall_seconds`` is this
         shard's busy time.  Thread-safe across shards: every touched
         structure (tree, cache, counters, I/O ledger) is shard-local.
         """
         t0 = time.perf_counter()
         payloads: list = []
+        io_wait = self.config.io_wait_s
         with span("shard.plan", shard=sp.shard, batch=sp.seq,
                   steps=len(sp.steps), n_ops=sp.n_ops,
                   device=str(self.device)):
+            # Background jobs drain BEFORE the plan's steps: every plan
+            # starts from the fully-caught-up state the inline path
+            # would have reached, which keeps cross-plan results, level
+            # shapes and I/O ledgers byte-identical with the scheduler
+            # on.
+            self.run_scheduler()
             for step in sp.steps:
                 with span("shard." + KIND_NAMES[step.kind], n=len(step),
                           shard=sp.shard, batch=sp.seq):
+                    io0 = self.tree.io.total if io_wait > 0.0 else 0
                     if step.kind == OP_PUT:
                         self.put_batch(step.keys, step.vals)
                     elif step.kind == OP_DELETE:
                         self.delete_batch(step.keys)
                     elif step.kind == OP_GET:
                         found, vals = self.get_batch(step.keys)
-                        payloads.append((step.idx, found, vals))
+                        payloads.append((OP_GET, step.idx, found, vals))
+                    elif step.kind == OP_RANGE_SCAN:
+                        res = self.range_scan_batch(
+                            list(zip(step.los.tolist(),
+                                     step.his.tolist())))
+                        payloads.append((OP_RANGE_SCAN, step.idx, res))
                     else:  # OP_RANGE_DELETE (bounds clipped per shard)
                         self.range_delete_arrays(step.los, step.his)
+                    if io_wait > 0.0:
+                        # Timed-I/O mode: serve the step's charged
+                        # blocks as a real wait.  Charges are untouched;
+                        # only wall time grows, and it overlaps across
+                        # shard workers (sleep releases the GIL).
+                        dio = self.tree.io.total - io0
+                        if dio:
+                            time.sleep(dio * io_wait)
         return payloads, time.perf_counter() - t0
 
     # ------------------------------------------------------------ reads
@@ -222,6 +294,22 @@ class ShardExecutor:
             bloom_fn=self._bloom_maybe,
             validity_fn=self._validity_fn(),
             cascade_fn=self._cascade)
+
+    def range_scan(self, lo: int, hi: int):
+        """One range scan; (keys, vals) of the live entries in [lo, hi)."""
+        return self.range_scan_batch([(lo, hi)])[0]
+
+    def range_scan_batch(self, ranges) -> list:
+        """Batched range scans through the tree's one-pass batch path,
+        with GLORAN validity filtering on the interval kernel hook,
+        merge-round positions on the merge-rank kernel hook, and slice
+        charges absorbed by the shard's block cache; one (keys, vals)
+        pair per requested [lo, hi), in request order."""
+        self.cache.op_class = "range_scan"
+        return self.tree.range_scan_batch(
+            ranges, validity_fn=self._validity_fn(),
+            cache=self.cache if self.cache.enabled else None,
+            rank_fn=self._rank_fn())
 
     # --------------------------------------------------- cascade kernel
     def _cascade(self, keys: np.ndarray, resolved: np.ndarray,
@@ -256,10 +344,11 @@ class ShardExecutor:
 
     # ----------------------------------------------------- merge kernel
     def _rank_fn(self):
-        """The compaction merge hook: two-way merge-round output
-        positions through the merge-rank kernel when the round is big
-        enough to pay for a launch and both runs fit u32 working space;
-        declines (None -> host searchsorted) otherwise."""
+        """The sorted-view merge hook of scans and compactions: two-way
+        merge-round output positions through the merge-rank kernel when
+        the round is big enough to pay for a launch and both runs fit
+        u32 working space; declines (None -> host searchsorted)
+        otherwise."""
         cfg = self.config
         if not cfg.use_merge_kernel:
             return None

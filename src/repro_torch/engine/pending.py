@@ -9,8 +9,11 @@ all correctness needs: a key's whole history lives on one shard.  Serial
 order, and collection is a no-op.  Either way the results are identical;
 only the overlap differs.
 
-Collection scatters per-shard get verdicts back through their op ids,
-in deterministic request order.
+Collection merges per-shard payloads back in deterministic request
+order: get verdicts scatter through their op ids, and each scan's
+per-shard parts are combined in ascending shard order (slab
+concatenation under range partitioning, sorted-view merge under hash),
+so pipelined and serial execution return byte-identical results.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import time
 import numpy as np
 
 from ..obs import span
-from .plan import Plan
+from .plan import OP_GET, Plan
 
 
 class PendingBatch:
@@ -29,9 +32,10 @@ class PendingBatch:
 
     ``wait()`` blocks until every shard plan finished and the merge-back
     ran (idempotent, thread-safe).  ``results()`` returns one slot per
-    op in request order — gets yield value-or-None, writes yield None.
-    ``get_results()`` is the columnar accessor ``Engine.get_batch``
-    uses.  All accessors imply ``wait()``.
+    op in request order — gets yield value-or-None, range scans yield a
+    sorted ``(keys, vals)`` pair, writes yield None.  ``get_results()``
+    / ``scan_results()`` are the columnar accessors the typed engine
+    wrappers use.  All accessors imply ``wait()``.
 
     Overlap contract: while a pipelined batch is in flight, submitting
     more batches is safe (per-shard FIFO), but out-of-band access to the
@@ -50,6 +54,7 @@ class PendingBatch:
         self._collected = False
         self._found: np.ndarray | None = None
         self._vals: np.ndarray | None = None
+        self._scan_out: dict | None = None
         self._walls: dict[int, float] = {}
         self._lock = threading.Lock()
 
@@ -95,13 +100,25 @@ class PendingBatch:
         n = self.plan.n_ops
         found = np.zeros(n, dtype=bool)
         vals = np.zeros(n, dtype=np.uint64)
+        scan_parts: dict[int, list] = {
+            i: [] for i in self.plan.scan_ids.tolist()}
+        # Ascending shard order keeps scan merge-back deterministic (and,
+        # under range partitioning, already globally sorted).
         for s in sorted(payloads):
             step_payloads, wall = payloads[s]
             self._walls[s] = wall
-            for idx, f, v in step_payloads:
-                found[idx] = f
-                vals[idx] = v
+            for payload in step_payloads:
+                if payload[0] == OP_GET:
+                    _, idx, f, v = payload
+                    found[idx] = f
+                    vals[idx] = v
+                else:
+                    _, idx, res = payload
+                    for i, kv in zip(idx.tolist(), res):
+                        scan_parts[i].append(kv)
         self._found, self._vals = found, vals
+        self._scan_out = {i: self.engine._merge_scan_parts(ps)
+                          for i, ps in scan_parts.items()}
         self.engine._finish_batch(self)
 
     # ----------------------------------------------------------- results
@@ -111,6 +128,8 @@ class PendingBatch:
         out: list = [None] * self.plan.n_ops
         for i in self.plan.batch.get_ids.tolist():
             out[i] = int(self._vals[i]) if self._found[i] else None
+        for i, kv in self._scan_out.items():
+            out[i] = kv
         return out
 
     def get_results(self) -> tuple[np.ndarray, np.ndarray]:
@@ -118,3 +137,8 @@ class PendingBatch:
         self.wait()
         gids = self.plan.batch.get_ids
         return self._found[gids], self._vals[gids]
+
+    def scan_results(self) -> list:
+        """Merged (keys, vals) per range scan op, in op order."""
+        self.wait()
+        return [self._scan_out[i] for i in self.plan.scan_ids.tolist()]

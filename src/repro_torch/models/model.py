@@ -32,7 +32,7 @@ from .params import ParamSpec, init_params
 from .ssm import mamba2_block
 
 P = ParamSpec
-_MOE = "Queue A item 11 (model stack: moe.py)"
+_MOE = "queue A: the rest of the model stack (models/moe.py)"
 _DENSE = ("dense", "vlm", "audio")
 
 

@@ -13,9 +13,10 @@ Keys: (session_id << 16 | page_idx).  ``expire_session`` / ``expire_range``
 are single range deletes; the decode scheduler's page lookups are typed
 ``OpBatch`` gets submitted through the engine — ``lookup_submit`` returns
 the ``PendingBatch`` so a decode step can run while the registry shards
-execute.  The registry's engine keeps its filter state on one torch
-device (``cuda`` unless the caller asks for ``cpu``); ``live_pages``
-needs the engine's range scans, which are not ported yet and raise.
+execute; ``live_pages`` / ``live_pages_batch`` list a session's live
+pages with engine range scans over its key slab.  The registry's engine
+keeps its filter state on one torch device (``cuda`` unless the caller
+asks for ``cpu``).
 """
 
 from __future__ import annotations
@@ -48,9 +49,10 @@ class ServeStats:
 class SessionRegistry:
     """Engine-backed session/page registry with range-delete expiry.
 
-    Lookups, registrations, and expiries execute through a sharded
-    batched query ``Engine`` on ``device``; ``num_shards=1`` (the
-    default) keeps one tree, reachable as ``.tree``.
+    Lookups, registrations, expiries and live-page scans execute
+    through a sharded batched query ``Engine`` on ``device``;
+    ``num_shards=1`` (the default) keeps one tree, reachable as
+    ``.tree``.
     """
 
     def __init__(self, strategy: str = "gloran",

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.engine import Engine, EngineConfig
+from repro_torch.engine import EngineConfig
 from repro_torch.kernels import native
 from repro_torch.kernels.bloom import bloom_probe
 from repro_torch.kernels.u32 import to_device
@@ -70,25 +70,10 @@ def test_cuda_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("option,value", (
-    ("wal_dir", "/nonexistent"), ("procs", 2), ("scheduler", True),
-    ("tombstone_trigger", 0.5)))
+    ("wal_dir", "/nonexistent"), ("procs", 2)))
 def test_deferred_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EngineConfig(device="cpu", **{option: value})
-
-
-def test_range_scans_raise():
-    eng = Engine(2, config=EngineConfig(device="cpu"))
-    eng.put_batch(np.arange(10, dtype=np.uint64), np.arange(10,
-                                                            dtype=np.uint64))
-    for call in (lambda: eng.range_scan_batch([(0, 5)]),
-                 lambda: eng.range_scan(0, 5),
-                 lambda: eng.execute([("range_scan", 0, 5)])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    assert eng.execute([("get", 3), ("put", 3, 9), ("get", 3)]) == [3, None,
-                                                                     9]
-    eng.close()
 
 
 def test_kernel_wrapper_refuses_cpu_operands_and_missing_nvcc(monkeypatch):

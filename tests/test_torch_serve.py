@@ -77,10 +77,19 @@ def test_registry_matches_jax_under_range_expiry():
     pending = regs[1].lookup_submit(sids, pages)
     f2, v2 = pending.get_results()
     np.testing.assert_array_equal(f2, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        regs[1].live_pages(3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        regs[1].live_pages_batch([3, 4])
+    # Live pages come from engine range scans, as in the reference.
+    io0 = [reg.io_reads for reg in regs]
+    for sid in (3, 40, 41, 1700, 1990, 1999):
+        (jp, jv), (p, v) = (reg.live_pages(sid) for reg in regs)
+        np.testing.assert_array_equal(p, jp)
+        np.testing.assert_array_equal(v, jv)
+        assert len(p) == (0 if sid in (3, 1700, 1990) else 4)
+    batch = [3, 4, 40, 1805, 1999]
+    for (jp, jv), (p, v) in zip(*(reg.live_pages_batch(batch)
+                                  for reg in regs)):
+        np.testing.assert_array_equal(p, jp)
+        np.testing.assert_array_equal(v, jv)
+    assert regs[0].io_reads - io0[0] == regs[1].io_reads - io0[1]
 
 
 def test_serve_cli_on_cpu(capsys):
