@@ -41,6 +41,23 @@ result.  Phases, each of which fails the run on any error:
    must equal the inline store's; every launch a Hopper kernel, as many
    as the gated calls; put-batch p50/p99, load ops/s and the ``sched``
    counters both ways.
+2d. A third 3 M-key store with a write-ahead log
+   (``EngineConfig(wal_dir=<tmp dir>, fsync="batch")``) takes the same
+   load, lookups and tail deletes and is held to the inline store like
+   phase 2c's, with a ``take_snapshot`` after the load; its load ops/s
+   and put p50/p99 against the inline store's are the price of an fsync
+   a batch.  Then ``recover`` from the directory alone, three ways, each
+   held to the inline store in level shapes, ``seq``, ``num_entries``,
+   lookup results and (the first two) both scan mixes' digests: the full
+   log replayed, the snapshot plus the WAL tail, and a copy whose shard 0
+   lost half of its last frame (shard 0 replays one frame fewer and
+   equals a one-shard store fed its surviving frames; shards 1-7 equal
+   the full replay).  Every launch of the durable load and of each
+   recovery is a ``merge_path_sm90`` one, as many as the gated merges,
+   and each recovered lookup batch 8 ``cascade_sm90`` ones, the first
+   batch re-packing the registry; wall times, frames/s, the WAL's
+   counters, the snapshot's size and the temporary directory's
+   filesystem are printed.  The directories are removed at the end.
 3. The per-level route: the same lookups with the cascade off must
    return the same results, every per-level launch a ``bloom_sm90`` or
    ``interval_sm90`` one (none of the first ``bloom`` or ``interval``),
@@ -122,9 +139,12 @@ import hashlib
 import itertools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -169,7 +189,7 @@ KERNEL_SOURCES = {
     "interval_sm90": ("src/repro_torch/csrc/interval_sm90.cu",
                       "src/repro/kernels/interval/kernel.py:61"),
 }
-FILTER_KEYS = 3_000_000  # the 3 M-key filter of ROADMAP A3's shard
+FILTER_KEYS = 3_000_000  # the 3 M-key filter of ROADMAP A2's shard
 BITS_PER_KEY, HASHES = 10, 6  # the paper's filter (LSMConfig's defaults)
 BIG_LEVEL = 1 << 20  # areas of the large DR-tree level
 
@@ -358,18 +378,23 @@ def environment() -> tuple[str, str]:
     return smi, torch.cuda.get_device_name(0)
 
 
-def build_slice(n_keys: int, shards: int, seed: int, device: str,
-                **config):
+def build_engine(shards: int, device: str, **config):
+    """The store's configuration: GLORAN, the paper's ``LSMConfig``, the
+    EVE over the key universe; ``config`` sets ``EngineConfig`` fields."""
     from repro_torch.core import GloranConfig, RAEConfig
     from repro_torch.engine import Engine, EngineConfig
     from repro_torch.lsm import LSMConfig
+    return Engine(num_shards=shards, strategy="gloran",
+                  lsm_config=LSMConfig(),
+                  gloran_config=GloranConfig(
+                      eve=RAEConfig(key_universe=UNIVERSE)),
+                  config=EngineConfig(device=device, **config))
+
+
+def build_slice(n_keys: int, shards: int, seed: int, device: str,
+                **config):
     keys, los = make_stream(seed, n_keys)
-    eng = Engine(num_shards=shards, strategy="gloran",
-                 lsm_config=LSMConfig(),
-                 gloran_config=GloranConfig(
-                     eve=RAEConfig(key_universe=UNIVERSE)),
-                 config=EngineConfig(device=device, **config))
-    return eng, keys, los
+    return build_engine(shards, device, **config), keys, los
 
 
 def tail_deletes(eng, los: np.ndarray) -> np.ndarray:
@@ -439,21 +464,29 @@ def latency_ms(lat: list) -> str:
             f"p99 {ms[int(0.99 * (len(ms) - 1))]:.3f} ms")
 
 
-def store_snapshot(eng) -> dict:
-    """What the inline and the scheduler store must share at a point of
-    the op stream: level shapes, every shard's ``IOStats``, the kernel
-    counters."""
+def structure(eng) -> dict:
+    """Every shard's level shapes, ``seq`` and ``num_entries``."""
     return {"levels": [[len(l) if l is not None else 0
                         for l in sh.tree.levels] for sh in eng.shards],
+            "seq": [int(sh.tree.seq) for sh in eng.shards],
+            "entries": [int(sh.tree.num_entries) for sh in eng.shards]}
+
+
+def store_snapshot(eng) -> dict:
+    """What two stores fed the same op stream must share at a point of
+    it: their structure, every shard's ``IOStats``, the kernel
+    counters."""
+    return {**structure(eng),
             "io": [sh.tree.io.snapshot() for sh in eng.shards],
             "kernels": eng.kernel_counters.snapshot()}
 
 
-def assert_same_snapshot(got: dict, want: dict, where: str) -> None:
+def assert_same_snapshot(got: dict, want: dict, where: str,
+                         what: str = "scheduler store") -> None:
     for key in want:
         if got[key] != want[key]:
-            raise AssertionError(f"scheduler store differs from the inline "
-                                 f"one in {key} {where}: {got[key]} vs "
+            raise AssertionError(f"{what} differs from the inline one in "
+                                 f"{key} {where}: {got[key]} vs "
                                  f"{want[key]}")
 
 
@@ -728,9 +761,268 @@ def scheduler_phase(keys, los, tail, batches, live, inline, scans,
     return launches
 
 
+# ----------------------------------------------------------- durability
+def expect_launches(launches: dict, calls: dict, what: str) -> None:
+    """A window's launches are exactly the gated calls: the kernels named
+    in ``calls``, as many times each, and nothing else."""
+    got = {k: v for k, v in launches.items() if v}
+    want = {k: v for k, v in calls.items() if v}
+    assert got == want, f"{what}: launches {got}, gated calls {want}"
+
+
+def fs_type(path: str) -> str:
+    out = subprocess.run(["df", "-T", path], capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    return out[-1].split()[1]
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def tear_last_frame(wal_dir: str, shard: int) -> str:
+    """Cut the shard's newest segment that holds a frame in the middle of
+    its last frame (a crash mid-append); returns what was cut."""
+    from repro_torch.durable.wal import FRAME_HEADER, SEG_HEADER, shard_dir
+    sdir = shard_dir(wal_dir, shard)
+    for name in sorted(os.listdir(sdir), reverse=True):
+        path = os.path.join(sdir, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        at, last = SEG_HEADER.size, None
+        while at + FRAME_HEADER.size <= len(data):
+            last = at
+            at += FRAME_HEADER.size + FRAME_HEADER.unpack_from(data, at)[0]
+        if last is not None:
+            cut = (last + at) // 2
+            with open(path, "r+b") as f:
+                f.truncate(cut)
+            return (f"{name} cut at byte {cut} of {len(data)} (its last "
+                    f"frame spans bytes {last}..{at})")
+    raise AssertionError(f"shard {shard} holds no frame")
+
+
+def durable_store(wal: str, keys, los, tail, batches, inline, card) -> dict:
+    """The live durable store: the inline store's stream on a store with a
+    WAL (fsync a batch) and a snapshot after the load, held to the inline
+    store; returns its launches and its WAL frames a shard."""
+    from repro_torch.durable import take_snapshot
+    from repro_torch.kernels import native
+    eng, _, _ = build_slice(len(keys), 8, 0, "cuda", wal_dir=wal,
+                            fsync="batch")
+    native.reset_launches()
+    load_s, put_lat = load(eng, keys, los)
+    assert_same_snapshot(store_snapshot(eng), inline["load"],
+                         "after the load", "durable store")
+    n_ops = len(keys) + los.size
+    log(f"load, durable (fsync a batch, WAL on {fs_type(wal)}): {load_s:.3f} "
+        f"s = {n_ops / load_s:.1f} ops/s; {latency_ms(put_lat)}; inline: "
+        f"{inline['load_s']:.3f} s = {n_ops / inline['load_s']:.1f} ops/s; "
+        f"{latency_ms(inline['put_lat'])} {card}")
+    t0 = time.perf_counter()
+    snap = take_snapshot(eng)
+    snap_s = time.perf_counter() - t0
+    snap_frames = [sh.wal.frames_appended for sh in eng.shards]
+    log(f"snapshot after the load: {snap_s:.3f} s, {dir_bytes(snap)} B "
+        f"({os.path.basename(snap)}, covers {sum(snap_frames)} frames) {card}")
+    first, _ = lookups(eng, batches)
+    for lo in tail:
+        range_deletes(eng, lo)
+    second, lat = lookups(eng, batches)
+    for got, want in zip(first + second, inline["results"][0]
+                         + inline["results"][1]):
+        assert all(np.array_equal(g, w) for g, w in zip(got, want)), \
+            "durable store's lookups differ from the inline store's"
+    assert_same_snapshot(store_snapshot(eng), inline["lookups"],
+                         "after the lookups", "durable store")
+    report_lookups("lookups, durable store (results equal the inline "
+                   "store's)", lat, card)
+    kc = eng.kernel_counters
+    calls = {"merge_path_sm90": kc.merge_calls,
+             "cascade_sm90": kc.cascade_calls}
+    expect_launches(native.LAUNCHES, calls, "durable store")
+    wal_counters = eng.stats()["wal"]
+    frames = [sh.wal.frames_appended for sh in eng.shards]
+    eng.close()
+    log(f"durable store equals the inline store (level shapes, IOStats, "
+        f"kernel counters, lookups); launches {json.dumps(calls)}; wal "
+        f"{json.dumps(wal_counters)} (frames a shard {frames}) {card}")
+    return {"launches": calls, "frames": frames, "snap_frames": snap_frames}
+
+
+def recovered(tag: str, rec, want: dict, batches, scans, live, card,
+              model=None) -> dict:
+    """A recovered store held to ``want`` (structure and lookup results,
+    and with ``scans`` both mixes' digests; with ``model`` the lookups
+    also to the plain model): its launches and what it served."""
+    from repro_torch.kernels import native
+    got = structure(rec)
+    assert_same_snapshot(got, want["structure"], "after recovery", tag)
+    kc0 = rec.kernel_counters
+    native.reset_launches()
+    results, lat = lookups(rec, batches)
+    kc1 = rec.kernel_counters
+    calls = kc1.cascade_calls - kc0.cascade_calls
+    assert calls == rec.num_shards * len(batches), (tag, calls)
+    expect_launches(native.LAUNCHES, {"cascade_sm90": calls},
+                    f"{tag} lookups")
+    for (f, v), (wf, wv) in zip(results, want["results"]):
+        assert np.array_equal(f, wf) and np.array_equal(v[f], wv[wf]), \
+            f"{tag}: lookups differ"
+    if model is not None:
+        check_results([tuple(np.concatenate(c) for c in zip(*results))],
+                      [np.concatenate(batches)], *model)
+    log(f"lookups, {tag}: first batch {1e3 * lat[0]:.3f} ms (it re-packs "
+        f"the registry: {kc1.cascade_packs - kc0.cascade_packs} packs, "
+        f"{kc1.upload_bytes - kc0.upload_bytes} B uploaded over the "
+        f"{len(lat)} batches); results equal"
+        f"{' the model and' if model is not None else ''} the expected "
+        f"store's")
+    report_lookups(f"lookups, {tag}, batches 2-{len(lat)}", lat[1:], card)
+    out = {"structure": got, "results": results, "cascade_sm90": calls,
+           "merge_path_sm90": 0, "interval_sm90": 0}
+    for name, mix in (scans["mixes"].items() if scans else ()):
+        res = scan_mix(rec, f"{name}, {tag}", scans["batches"][name], live,
+                       card)
+        assert res["digests"] == mix["digests"], f"{tag}: {name} scans"
+        for k, v in res["launches"].items():
+            out[k] += v
+    return out
+
+
+def recover_checked(wal: str, tag: str, **kw):
+    """``recover`` with the default config (the card), its launches held
+    to the gated merges of the replay."""
+    from repro_torch.durable import recover
+    from repro_torch.kernels import native
+    native.reset_launches()
+    rec = recover(wal, **kw)
+    merges = rec.kernel_counters.merge_calls
+    expect_launches(native.LAUNCHES, {"merge_path_sm90": merges}, tag)
+    r = rec.recovery
+    log(f"recovery, {tag}: {r['wall_s']:.3f} s, {r['frames_replayed']} "
+        f"frames replayed = {r['frames_replayed'] / r['wall_s']:.1f} "
+        f"frames/s, snapshot loaded {r['snapshot_loaded']}, "
+        f"merge_path_sm90 launches {merges}")
+    return rec, merges
+
+
+def durable_phase(keys, los, tail, batches, live, inline, scans,
+                  card) -> dict:
+    """Phase 2d: the durable store and its three recoveries, in a
+    temporary directory removed at the end (also on failure); returns
+    the launches by path for each kernel."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_wal_")
+    try:
+        out = durable_checks(root, keys, los, tail, batches, live, inline,
+                             scans, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 2d: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def durable_checks(root, keys, los, tail, batches, live, inline, scans,
+                   card) -> dict:
+    """The durable store under ``root``, then ``recover`` by full replay,
+    from the snapshot plus the tail, and of a copy with a torn frame."""
+    from repro_torch.durable import WalReader, replay_frame
+    from repro_torch.kernels import native
+    wal = os.path.join(root, "wal")
+    live_store = durable_store(wal, keys, los, tail, batches, inline, card)
+    frames, snap_frames = live_store["frames"], live_store["snap_frames"]
+    los_all = np.concatenate([los, tail])
+
+    # The full log, then the snapshot plus the WAL tail.
+    rec, full_merges = recover_checked(wal, "full replay",
+                                       use_snapshot=False)
+    assert rec.recovery["snapshot_loaded"] == 0
+    assert rec.recovery["frames_replayed"] == sum(frames)
+    want = {"structure": {k: inline["lookups"][k]
+                          for k in ("levels", "seq", "entries")},
+            "results": inline["results"][1]}
+    full = recovered("full replay", rec, want, batches, scans, live, card,
+                     model=(keys, los_all))
+    rec.close()
+    rec, snap_merges = recover_checked(wal, "snapshot + tail")
+    assert rec.recovery["snapshot_loaded"] == 1
+    assert rec.recovery["frames_replayed"] == sum(frames) - sum(snap_frames)
+    snap = recovered("snapshot + tail", rec, full, batches, scans, live,
+                     card)
+    rec.close()
+
+    # A crash mid-append: shard 0 loses half of its last frame.
+    torn_dir = os.path.join(root, "torn")
+    shutil.copytree(wal, torn_dir)
+    log(f"torn tail: shard 0's {tear_last_frame(torn_dir, 0)}")
+    rec, torn_merges = recover_checked(torn_dir, "torn tail")
+    # The snapshot stands while shard 0's torn frame came after it (a
+    # tail delete); one that covers the lost frame is discarded.
+    after = snap_frames[0] < frames[0]
+    assert rec.recovery["snapshot_loaded"] == int(after)
+    assert rec.recovery["frames_replayed"] == \
+        sum(frames) - (sum(snap_frames) if after else 0) - 1
+    survived = [len(WalReader(torn_dir, s).read_frames())
+                for s in range(len(frames))]
+    assert survived == [frames[0] - 1] + frames[1:], survived
+    native.reset_launches()
+    ref = build_engine(1, "cuda")
+    t0 = time.perf_counter()
+    for fr in WalReader(torn_dir, 0).read_frames():
+        replay_frame(ref.shards[0], fr)
+    ref_s = time.perf_counter() - t0
+    ref_merges = ref.kernel_counters.merge_calls
+    expect_launches(native.LAUNCHES, {"merge_path_sm90": ref_merges},
+                    "shard 0's reference replay")
+    log(f"shard 0's reference: {survived[0]} frames replayed into a "
+        f"one-shard store in {ref_s:.3f} s; merge_path_sm90 launches "
+        f"{ref_merges}")
+    sub_batches = [q[rec.router.shard_of(q) == 0] for q in batches]
+    native.reset_launches()
+    kc0 = ref.kernel_counters
+    ref_results, _ = lookups(ref, sub_batches)
+    ref_lookups = ref.kernel_counters.cascade_calls - kc0.cascade_calls
+    expect_launches(native.LAUNCHES, {"cascade_sm90": ref_lookups},
+                    "shard 0's reference lookups")
+    ref_struct = structure(ref)
+    want = {"structure": {k: ref_struct[k][:1] + v[1:]
+                          for k, v in full["structure"].items()},
+            "results": []}
+    for q, (f, v), (rf, rv) in zip(batches, full["results"], ref_results):
+        m = rec.router.shard_of(q) == 0
+        f, v = f.copy(), v.copy()
+        f[m], v[m] = rf, rv
+        want["results"].append((f, v))
+    torn = recovered("torn tail", rec, want, batches, None, live, card)
+    rec.close()
+    ref.close()
+    log("torn tail: shard 0 replayed one frame fewer and equals the "
+        "one-shard store of its surviving frames (level shapes, seq, "
+        "entries, lookups); shards 1-7 equal the full replay")
+
+    return {
+        "merge_path_sm90": {
+            "durable store": live_store["launches"]["merge_path_sm90"],
+            "recovery": full_merges + snap_merges + torn_merges,
+            "recovered scans": full["merge_path_sm90"]
+            + snap["merge_path_sm90"],
+            "torn-tail reference": ref_merges},
+        "cascade_sm90": {
+            "durable store": live_store["launches"]["cascade_sm90"],
+            "recovered lookups": sum(x["cascade_sm90"]
+                                     for x in (full, snap, torn)),
+            "torn-tail reference": ref_lookups},
+        "interval_sm90": {
+            "recovered scans": full["interval_sm90"]
+            + snap["interval_sm90"]}}
+
+
 def store_phases(card: str) -> list[dict]:
-    """Phases 2-4: the store's slice, its per-level route and its eight
-    kernels against their plain versions; returns their records."""
+    """Phases 2-4: the store's slice (with the scheduler and the durable
+    stores), its per-level route and its eight kernels against their
+    plain versions; returns their records."""
     from repro_torch.kernels import native
 
     # 2. the slice, cascade on: counts are zeroed just before the load
@@ -805,6 +1097,9 @@ def store_phases(card: str) -> list[dict]:
     scans = scan_phase(eng, live, card)
     sched_launches = scheduler_phase(keys, los, los_all[len(los):], batches,
                                      live, inline, scans, card)
+    # 2d. a third store with a write-ahead log, and its recoveries.
+    durable_launches = durable_phase(keys, los, los_all[len(los):], batches,
+                                     live, inline, scans, card)
     path = {"merge_path_sm90": {"load": main_launches["merge_path_sm90"],
                                 "scans": scans["launches"]["merge_path_sm90"],
                                 "scheduler store": sched_launches[
@@ -813,6 +1108,8 @@ def store_phases(card: str) -> list[dict]:
                              "scheduler store lookups": sched_launches[
                                  "cascade_sm90"]},
             "interval_sm90": {"scans": scans["launches"]["interval_sm90"]}}
+    for name, counts in durable_launches.items():
+        path[name].update(counts)
 
     # 3. the per-level route on the same store: cascade off, and every
     # probe of a level takes a kernel.  The default gates would keep the
@@ -1049,7 +1346,7 @@ def cascade_checks(eng, views, batches, mixed_keys, launches, card,
         f"{n} coverage masks differ at area starts: rejected")
 
     # n = 8192: a whole lookup batch against shard 0's pack, in request
-    # order, with each lane count (the sub-batch size of ROADMAP A3).
+    # order, with each lane count (the sub-batch size of ROADMAP A2).
     keys = batches[1]
     m = len(keys)
     big = (to_device(keys, dev), to_device(fold64to32(keys), dev),

@@ -8,7 +8,9 @@ and merged back in request order by the returned ``PendingBatch``.
 Lookups run through the fused CUDA cascade over each shard's
 device-resident ``DeviceFilterRegistry`` packs, or the per-level bloom
 and interval kernels when the cascade declines; compactions order
-their merges through the merge-rank kernel.
+their merges through the merge-rank kernel.  With
+``EngineConfig.wal_dir`` every shard plan's writes are logged before
+they run (``repro_torch.durable``).
 """
 
 from .cache import BlockCache

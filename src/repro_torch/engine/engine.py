@@ -11,13 +11,15 @@ results back in request order.  ``get_batch``, ``range_scan_batch``,
 
 Every shard keeps its filter state on ``EngineConfig.device`` and runs
 its kernels there.  This package serves writes, point lookups and range
-scans, with background compaction on or off; durability and worker
-processes raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+scans, with background compaction on or off, and with a write-ahead log
+and level manifest when ``EngineConfig.wal_dir`` is set (reopened after
+a crash by ``repro_torch.durable.recover``); worker processes raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -26,6 +28,8 @@ import numpy as np
 
 from ..core.gloran import GloranConfig
 from ..device import resolve_device
+from ..durable.manifest import LevelManifest, engine_config_doc
+from ..durable.wal import WalWriter, wal_has_frames
 from ..lsm import LSMConfig, LSMTree
 from ..lsm.merge import merge_runs
 from ..lsm.scheduler import CompactionScheduler
@@ -89,6 +93,11 @@ class Engine:
     cascades run at each plan's start, at ``drain`` / ``flush`` /
     ``stats`` / ``close``, or under backpressure, byte-identical to the
     inline engine.
+
+    Durability (``EngineConfig.wal_dir``): every shard appends one WAL
+    frame per plan before its steps run, and a batch is acknowledged
+    only after that append (fsynced under ``fsync="batch"``); the level
+    manifest records the config and each structural edit.
     """
 
     def __init__(self, num_shards: int = 1, strategy: str = "gloran",
@@ -102,10 +111,24 @@ class Engine:
         base = lsm_config or LSMConfig()
         self.lsm_config = base
         self.gloran_config = gloran_config
+        # The gloran config the shards actually run (GloranIndex
+        # defaults None to GloranConfig()); the manifest's config doc
+        # serializes THIS so recovery rebuilds identically.
+        self._gloran_eff = ((gloran_config or GloranConfig())
+                            if strategy == "gloran" else None)
         self.router = ShardRouter(self.num_shards,
                                   partition=self.config.partition,
                                   universe=base.key_universe)
         self.planner = Planner(self.router)
+        # A directory that already holds acknowledged frames is refused
+        # — recovery must fold them in first, or acked writes would be
+        # silently orphaned.
+        if self.config.wal_dir:
+            if wal_has_frames(self.config.wal_dir):
+                raise RuntimeError(
+                    f"WAL at {self.config.wal_dir} holds acknowledged "
+                    "frames; open it with repro_torch.durable.recover() "
+                    "instead of a fresh Engine")
         self.shards = [
             ShardExecutor(LSMTree(base, strategy=strategy,
                                   gloran_config=gloran_config),
@@ -123,6 +146,38 @@ class Engine:
         self._pools: list[ThreadPoolExecutor] | None = None
         self._inflight: list[PendingBatch] = []
         self._inflight_lock = threading.Lock()
+        # Durability (repro_torch.durable): a configured wal_dir attaches
+        # a per-shard WAL stream + the level manifest.
+        self.wal_dir: str | None = None
+        self.manifest = None
+        self.recovery = {"wall_s": 0.0, "frames_replayed": 0,
+                         "snapshot_loaded": 0}
+        if self.config.wal_dir:
+            self._attach_durability(self.config.wal_dir)
+
+    def _attach_durability(self, wal_dir: str, *, manifest=None,
+                           writers: list | None = None) -> None:
+        """Wire WAL writers + manifest into every shard.  Called from
+        ``__init__`` for a fresh store and from
+        ``repro_torch.durable.recover`` after replay (which passes the
+        loaded manifest and writers positioned at the durable tail)."""
+        self.wal_dir = wal_dir
+        if manifest is None:
+            # Routine structure commits skip fsync (not load-bearing —
+            # recovery replays the WAL); the initial commit carries the
+            # config doc recovery rebuilds the engine from, so THAT one
+            # is made durable explicitly.
+            manifest = LevelManifest(
+                os.path.join(wal_dir, "manifest"),
+                config=engine_config_doc(self), fsync=False)
+            manifest.commit(fsync=self.config.fsync != "never")
+        self.manifest = manifest
+        for s, sh in enumerate(self.shards):
+            w = (writers[s] if writers is not None else
+                 WalWriter(wal_dir, s,
+                           segment_bytes=self.config.wal_segment_bytes,
+                           fsync=self.config.fsync))
+            sh.attach_durability(w, manifest, s)
 
     # -------------------------------------------------- submit / collect
     def submit(self, batch: OpBatch, *,
@@ -168,7 +223,7 @@ class Engine:
             pending.wait()
         if self.background:
             for sh in self.shards:
-                sh.run_scheduler()
+                sh.run_scheduler("drain")
 
     def _shard_pools(self) -> list[ThreadPoolExecutor]:
         """One single-worker pool per shard: cross-shard parallelism with
@@ -237,20 +292,24 @@ class Engine:
         self.submit(OpBatch.range_deletes(ranges)).wait()
 
     def flush(self) -> None:
-        """Flush every shard's memtable to its level 0 (drains first)."""
+        """Flush every shard's memtable to its level 0 (drains first).
+        Durable shards log a FLUSH marker + manifest edit each."""
         self.drain()
         for sh in self.shards:
             sh.flush()
 
     def close(self) -> None:
         """Deterministic shutdown (idempotent): drain in-flight batches
-        and pending scheduler jobs, and join the per-shard worker
-        pools."""
+        and pending scheduler jobs, join the per-shard worker pools, and
+        flush + fsync + close every WAL stream — tests and benches never
+        leak worker threads or half-written segments."""
         self.drain()
         if self._pools is not None:
             for p in self._pools:
                 p.shutdown(wait=True)
             self._pools = None
+        for sh in self.shards:
+            sh.close()
 
     def __enter__(self) -> "Engine":
         return self
@@ -421,5 +480,16 @@ class Engine:
         if lsm_m:
             out["lsm"] = lsm_m
             m.absorb("lsm", lsm_m)
+        # WAL ledger (bytes, appends, fsyncs, frames, segments) across
+        # the shards, and the last recovery's timings.
+        wals = [f["wal"] for f in fulls if f["wal"] is not None]
+        if wals:
+            agg = {}
+            for c in wals:
+                for k, v in c.items():
+                    agg[k] = agg.get(k, 0) + v
+            out["wal"] = agg
+            m.absorb("wal", agg)
+        m.absorb("recovery", self.recovery)
         out["metrics"] = m.snapshot()
         return out

@@ -36,6 +36,11 @@ order their two-run merges through the same hook
 inline, or as background jobs of an attached ``CompactionScheduler``
 drained at the start of every plan.
 
+Durable shards (``attach_durability``) append one WAL frame per plan —
+every write op of the plan, before any step runs — and commit a
+manifest edit whenever a plan, a background job or an explicit flush
+moved the level structure.
+
 The control flow stays single-sourced in ``LSMTree`` / ``GloranIndex`` /
 ``LSMDRTree``; hooks only replace HOW a verdict is computed, never what
 is charged for it — except the block cache, whose whole point is
@@ -51,6 +56,10 @@ import numpy as np
 
 from ..core.eve import fold64to32
 from ..device import resolve_device
+# Submodule imports (not the package) keep the engine <-> durable import
+# graph acyclic; durable.manifest depends only on durable.atomic.
+from ..durable.manifest import structure_fingerprint
+from ..durable.wal import FRAME_BATCH, FSYNC_POLICIES
 from ..kernels.bloom.ops import bloom_probe
 from ..kernels.cascade.ops import cascade_lookup
 from ..kernels.interval.ops import interval_query
@@ -60,13 +69,12 @@ from ..lsm.scheduler import level_rt_density
 from ..lsm.tree import CascadeVerdict, LSMTree
 from ..obs import span
 from .cache import BlockCache
-from .plan import (KIND_NAMES, OP_DELETE, OP_GET, OP_PUT, OP_RANGE_SCAN,
-                   ShardPlan)
+from .plan import (KIND_NAMES, OP_DELETE, OP_GET, OP_PUT, OP_RANGE_DELETE,
+                   OP_RANGE_SCAN, ShardPlan)
 from .registry import DeviceFilterRegistry, _U32_LIMIT
 from .stats import KernelCounters
 
 _DEFERRED = {
-    "wal_dir": "queue A: durable/",
     "procs": "queue A: engine/procpool.py",
 }
 
@@ -110,9 +118,16 @@ class EngineConfig:
     # compaction intentionally diverges from the inline level shapes to
     # reclaim GLORAN garbage early).  Needs ``scheduler``.
     tombstone_trigger: float | None = None
-    # Not in this package yet; setting one raises NotImplementedError
-    # naming the ROADMAP item that ports it.
+    # Durability: a WAL directory turns on per-shard write-ahead logging
+    # plus the level manifest (see ``repro_torch.durable``).  Batches
+    # are acknowledged only after their write ops are appended (and,
+    # under the "batch" policy, fsynced).  ``fsync`` is one of "batch" |
+    # "rotate" | "never" (see ``durable.wal.FSYNC_POLICIES``).
     wal_dir: str | None = None
+    fsync: str = "batch"
+    wal_segment_bytes: int = 4 << 20
+    # Not in this package yet; setting it raises NotImplementedError
+    # naming the ROADMAP item that ports it.
     procs: int | None = None
 
     def __post_init__(self) -> None:
@@ -121,6 +136,9 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"EngineConfig.{name} is not ported to repro_torch "
                     f"yet: ROADMAP {item}")
+        if self.fsync not in FSYNC_POLICIES:
+            raise ValueError(f"EngineConfig.fsync={self.fsync!r}: one of "
+                             f"{FSYNC_POLICIES}")
         resolve_device(self.device)  # raises where CUDA is absent
 
 
@@ -135,11 +153,24 @@ class ShardExecutor:
         # the per-level kernel route (per-SSTable pieces + GLORAN
         # interval views, structurally invalidated).
         self.registry = DeviceFilterRegistry(device, self.kernels)
+        # Durability attachments (None = volatile shard; see
+        # ``Engine._attach_durability`` / ``repro_torch.durable``).  The
+        # WAL writer is single-appender by construction: all appends
+        # happen on this shard's pipeline thread (or the engine thread
+        # after a drain), the existing per-shard FIFO.
+        self.wal = None
+        self.manifest = None
+        self.shard_id = 0
         # Background compaction scheduler (None = inline flush path).
         self.scheduler = None
         # Compactions route their two-run merge through the gated
         # merge-rank kernel closure (the same hook the scans use).
         tree.compaction_rank_fn = self._rank_fn()
+
+    def attach_durability(self, wal, manifest, shard_id: int) -> None:
+        self.wal = wal
+        self.manifest = manifest
+        self.shard_id = int(shard_id)
 
     def attach_scheduler(self, scheduler) -> None:
         """Enable background mode: the tree seals instead of flushing
@@ -150,11 +181,57 @@ class ShardExecutor:
         self.tree.scheduler = scheduler
         self.tree.io.enable_locking()
 
-    def run_scheduler(self) -> None:
+    def run_scheduler(self, reason: str = "sched") -> None:
         """Drain due background jobs (flushes, cascades, proactive
-        compactions) on the calling thread."""
-        if self.scheduler is not None and self.scheduler.has_work():
-            self.scheduler.run_due()
+        compactions) on the calling thread, committing a manifest edit
+        if the level structure moved (jobs mutate structure outside any
+        plan, exactly like an explicit flush)."""
+        if self.scheduler is None or not self.scheduler.has_work():
+            return
+        fp0 = (structure_fingerprint(self.tree)
+               if self.manifest is not None else None)
+        self.scheduler.run_due()
+        self._maybe_record_structure(fp0, reason)
+
+    def _log_plan(self, sp: ShardPlan) -> None:
+        """Group commit: ONE WAL frame holding every write op of this
+        shard plan (reads are not logged — replay re-derives any reads
+        embedded in delete strategies from the rebuilt state).  Under
+        the "batch" fsync policy the frame is durable before any step
+        executes, so acknowledgement (which follows ``run_plan``)
+        implies durability."""
+        kinds, keys, vals, los, his = [], [], [], [], []
+        for step in sp.steps:
+            if step.kind not in (OP_PUT, OP_DELETE, OP_RANGE_DELETE):
+                continue
+            if step.kind == OP_RANGE_DELETE:
+                n = len(step.los)
+                z = np.zeros(n, np.uint64)
+                keys.append(z)
+                vals.append(z)
+                los.append(step.los)
+                his.append(step.his)
+            else:
+                n = len(step.keys)
+                z = np.zeros(n, np.uint64)
+                keys.append(step.keys)
+                vals.append(step.vals if step.kind == OP_PUT else z)
+                los.append(z)
+                his.append(z)
+            kinds.append(np.full(n, step.kind, np.uint8))
+        if not kinds:
+            return
+        self.wal.append(FRAME_BATCH, sp.seq, np.concatenate(kinds),
+                        np.concatenate(keys), np.concatenate(vals),
+                        np.concatenate(los), np.concatenate(his))
+
+    def _maybe_record_structure(self, fp0, reason: str) -> None:
+        """Commit a manifest edit iff the durable structure moved."""
+        if self.manifest is None:
+            return
+        if structure_fingerprint(self.tree) != fp0:
+            self.manifest.record_structure(self.shard_id, self.tree,
+                                           reason=reason)
 
     # ----------------------------------------------------------- writes
     def put_batch(self, keys: np.ndarray, vals: np.ndarray) -> None:
@@ -173,10 +250,22 @@ class ShardExecutor:
     def flush(self) -> None:
         """Flush the shard's memtable (and LRR buffer) to level 0; with
         a scheduler, synchronously: the sealed snapshot and every job
-        it queues have run when this returns."""
+        it queues have run when this returns.
+
+        Durable shards first log a FLUSH marker — the flush mutates
+        level structure outside any plan, and replay must flush at the
+        same point for level shapes to come back byte-identical — and
+        commit a manifest edit if the level stack moved."""
+        if self.wal is not None:
+            self.wal.append_flush()
+        fp0 = (structure_fingerprint(self.tree)
+               if self.manifest is not None else None)
         self.tree.flush()
         if self.scheduler is not None:
+            # Explicit flush is synchronous: the FLUSH frame above acks
+            # only after the background flush durably published.
             self.scheduler.drain()
+        self._maybe_record_structure(fp0, "flush")
 
     # ------------------------------------------------ uniform surface
     @property
@@ -207,6 +296,7 @@ class ShardExecutor:
                         if tree.gloran is not None else None),
             "sched": (self.scheduler.counters()
                       if self.scheduler is not None else None),
+            "wal": self.wal.counters() if self.wal is not None else None,
             "lsm": {
                 "compaction_bytes": {int(i): int(b) for i, b in
                                      tree.compaction_bytes.items()},
@@ -217,6 +307,10 @@ class ShardExecutor:
                 "num_levels": len(tree.levels),
             },
         }
+
+    def close(self) -> None:
+        if self.wal is not None:
+            self.wal.close()
 
     # ------------------------------------------------------- typed plans
     def run_plan(self, sp: ShardPlan) -> tuple[list, float]:
@@ -236,12 +330,21 @@ class ShardExecutor:
         with span("shard.plan", shard=sp.shard, batch=sp.seq,
                   steps=len(sp.steps), n_ops=sp.n_ops,
                   device=str(self.device)):
+            # The WAL append comes first, before the scheduler drain:
+            # replay drains at the start of each frame, so a frame must
+            # stand for the writes that followed this drain point.
+            if self.wal is not None:
+                with span("shard.wal_append", shard=sp.shard,
+                          batch=sp.seq):
+                    self._log_plan(sp)
             # Background jobs drain BEFORE the plan's steps: every plan
             # starts from the fully-caught-up state the inline path
             # would have reached, which keeps cross-plan results, level
             # shapes and I/O ledgers byte-identical with the scheduler
             # on.
             self.run_scheduler()
+            fp0 = (structure_fingerprint(self.tree)
+                   if self.manifest is not None else None)
             for step in sp.steps:
                 with span("shard." + KIND_NAMES[step.kind], n=len(step),
                           shard=sp.shard, batch=sp.seq):
@@ -268,6 +371,7 @@ class ShardExecutor:
                         dio = self.tree.io.total - io0
                         if dio:
                             time.sleep(dio * io_wait)
+            self._maybe_record_structure(fp0, "plan")
         return payloads, time.perf_counter() - t0
 
     # ------------------------------------------------------------ reads

@@ -77,8 +77,9 @@ class CascadeState:
     G: int
 
     @classmethod
-    def from_numpy(cls, device="cpu", **arrays) -> "CascadeState":
-        """A state on ``device`` from host arrays named like the fields
+    def from_numpy(cls, device, **arrays) -> "CascadeState":
+        """A state on ``device`` (no default: the caller names the card
+        or the CPU) from host arrays named like the fields
         (e.g. ``np.asarray`` of each array of the JAX package's
         ``CascadeState``).  ``L``, ``H`` and ``G`` come from the shapes;
         with ``G == 0`` the GLORAN arrays may be absent or placeholders."""

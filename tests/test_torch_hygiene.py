@@ -69,8 +69,7 @@ def test_cuda_device_without_cuda_raises():
         EngineConfig()  # the default device is the card
 
 
-@pytest.mark.parametrize("option,value", (
-    ("wal_dir", "/nonexistent"), ("procs", 2)))
+@pytest.mark.parametrize("option,value", (("procs", 2),))
 def test_deferred_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EngineConfig(device="cpu", **{option: value})

@@ -171,7 +171,7 @@ def test_cascade_plain_matches_pallas_and_oracle(L, G):
         interpret=True)
     pallas = [np.asarray(a).reshape(-1)[:n] for a in pallas[:3]] + [
         np.asarray(pallas[3]).reshape(L, -1)[:, :n]]
-    state = CascadeState.from_numpy(**host)
+    state = CascadeState.from_numpy(device="cpu", **host)
     assert (state.L, state.H, state.G) == (L, 6, G)
     got = cascade_masks(t32(q32), t32(qh), t32(qs), t32(qr, np.int32),
                         state)
@@ -189,9 +189,9 @@ def test_cascade_lookup_unpacks_like_reference():
     rng = np.random.default_rng(5)
     host = make_pack(rng, 3, 2)
     q, qh, qs, qr = queries(rng, host, 300)
+    state = CascadeState.from_numpy(device="cpu", **host)
     maybe, hit, gl, pos = cascade_lookup(q.astype(np.uint32), qh, qs,
-                                         qr.astype(bool),
-                                         CascadeState.from_numpy(**host))
+                                         qr.astype(bool), state)
     bm, hm, gm, p = cascade_np(q.astype(np.uint32), qh, qs, qr, **host)
     np.testing.assert_array_equal((maybe << np.arange(3)).sum(1), bm)
     np.testing.assert_array_equal((hit << np.arange(3)).sum(1), hm)

@@ -71,6 +71,7 @@ def test_pack_matches_reference(rounds):
         "cpu": jreg.counters.upload_bytes}
     # The same state carried across as numpy arrays.
     carried = CascadeState.from_numpy(
+        device="cpu",
         **{f: np.asarray(getattr(jv.state, f)) for f in U32 + I32})
     for f in U32 + I32:
         assert torch.equal(getattr(carried, f), getattr(tv.state, f)), f

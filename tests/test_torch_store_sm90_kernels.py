@@ -319,7 +319,7 @@ def test_cascade_emulation_edges_match_plain_and_oracle(counts, areas):
     q, qh, qs, qr = TK.queries(rng, host, 1500)
     q, qs, qr = area_queries(rng, host, q, qs, qr)
     want = cascade_np(q.astype(U32), qh, qs, qr, **host)
-    st = CascadeState.from_numpy(**host)
+    st = CascadeState.from_numpy(device="cpu", **host)
     plain = cascade_ref(*(to_device(x, "cpu", t) for x, t in
                           ((q, U32), (qh, U32), (qs, U32), (qr, np.int32))),
                         st)
@@ -341,7 +341,7 @@ def test_cascade_empty_level_has_no_hit_and_pos_minus_one():
     assert (pos[0] == -1).all() and (pos[2] == -1).all()
     assert not (hit & 0b101).any() and (hit & 0b010).any()
     assert not (gl & 1).any()
-    st = CascadeState.from_numpy(**host)
+    st = CascadeState.from_numpy(device="cpu", **host)
     plain = cascade_masks(*(to_device(x, "cpu", t) for x, t in
                             ((q, U32), (qh, U32), (qs, U32),
                              (qr, np.int32))), st)
