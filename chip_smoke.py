@@ -26,8 +26,8 @@ result.  Phases, each of which fails the run on any error:
    device's busy time over a few of them.
 2b. Range scans on the same store at the default gates, each held to the
    plain model (the sorted live keys in [lo, hi) and their values):
-   "slabs", 16 batches of 1024 scans of width 2^16 at uniform starts
-   (``SessionRegistry.live_pages``' slab), and "long", 16 batches of 64
+   "slabs", 8 batches of 1024 scans of width 2^16 at uniform starts
+   (``SessionRegistry.live_pages``' slab), and "long", 8 batches of 64
    scans of width 2^20.  Every launch must be ``merge_path_sm90`` or
    ``interval_sm90``, as many as the ``KernelCounters`` count (the mixes
    run again with the gates lowered only if no interval launch came);
@@ -48,7 +48,8 @@ result.  Phases, each of which fails the run on any error:
    and put p50/p99 against the inline store's are the price of an fsync
    a batch.  Then ``recover`` from the directory alone, three ways, each
    held to the inline store in level shapes, ``seq``, ``num_entries``,
-   lookup results and (the first two) both scan mixes' digests: the full
+   lookup results and (the first two) the digests of both scan mixes'
+   first 4 batches: the full
    log replayed, the snapshot plus the WAL tail, and a copy whose shard 0
    lost half of its last frame (shard 0 replays one frame fewer and
    equals a one-shard store fed its surviving frames; shards 1-7 equal
@@ -58,6 +59,30 @@ result.  Phases, each of which fails the run on any error:
    batch re-packing the registry; wall times, frames/s, the WAL's
    counters, the snapshot's size and the temporary directory's
    filesystem are printed.  The directories are removed at the end.
+2e. A fourth 3 M-key store with its shards in worker processes
+   (``EngineConfig(procs=4, devices=1, wal_dir=<tmp dir>,
+   fsync="batch")``: two shards a worker, every shard on cuda:0, a CUDA
+   context a worker) takes the same load, lookups and tail deletes and
+   the first 4 batches of each scan mix.  What its parent sees is held to
+   the inline store after the load and after the lookups: every shard's
+   entries and ``IOStats`` from its worker's STATS reply, the kernel
+   counters, and the level records the workers shipped into the
+   manifest against ``describe_tree`` of the inline shards (less run
+   uids, counted per process, and ``seq``); its lookup results and scan
+   digests equal the inline store's.  Each worker's launches (its
+   ``native.LAUNCHES``, read through ``ProcPool.launches``) must be
+   exactly its shards' gated calls: one ``cascade_sm90`` a lookup
+   sub-batch, one ``merge_path_sm90`` a gated merge, one
+   ``interval_sm90`` a scan validity call, and nothing else; the parent
+   launches nothing.  Then ``recover`` of its directory with 4 workers
+   (each replays its own streams) and in-process, both held to the
+   inline store in structure, lookups and scan digests.  Load ops/s and
+   put p50/p99 against phase 2d's durable store, lookup keys/s and
+   p50/p99 against the inline store, scans/s, worker spawn and ready
+   seconds, the transport ledger, the workers' allocator peaks and the
+   card's memory a process, the replay with 4 workers against phase
+   2d's, and the launches a worker are printed; the device's busy share
+   is not (the parent's profiler sees no worker's kernels).
 3. The per-level route: the same lookups with the cascade off must
    return the same results, every per-level launch a ``bloom_sm90`` or
    ``interval_sm90`` one (none of the first ``bloom`` or ``interval``),
@@ -492,9 +517,10 @@ def assert_same_snapshot(got: dict, want: dict, where: str,
 
 # ---------------------------------------------------------- range scans
 SCAN_MIXES = {  # name: (batches, scans a batch, width)
-    "slabs": (16, 1024, 1 << 16),  # SessionRegistry.live_pages' slab
-    "long": (16, 64, 1 << 20),
+    "slabs": (8, 1024, 1 << 16),  # SessionRegistry.live_pages' slab
+    "long": (8, 64, 1 << 20),
 }
+RECOVERED_SCAN_BATCHES = 4  # of each mix, on recovered and procs stores
 
 
 def live_keys(keys: np.ndarray, los: np.ndarray) -> np.ndarray:
@@ -535,14 +561,41 @@ def scan_digest(res) -> str:
     return h.hexdigest()
 
 
+def reset_counts(eng) -> None:
+    """Zero the launch counts of every process that runs ``eng``'s
+    kernels: this one, and in procs mode each worker."""
+    from repro_torch.kernels import native
+    native.reset_launches()
+    if eng.procs:
+        eng._proc_pool.reset_launches()
+
+
+def counts(eng) -> dict:
+    """The launch counts since ``reset_counts``: this process's, or in
+    procs mode the workers' summed (this process launched nothing)."""
+    from repro_torch.kernels import native
+    if not eng.procs:
+        return dict(native.LAUNCHES)
+    assert not any(native.LAUNCHES.values()), \
+        f"the parent of a procs store launched {native.LAUNCHES}"
+    return eng._proc_pool.launches()
+
+
+def shard_io(eng) -> list:
+    """Every shard's ``IOStats`` snapshot (a procs store's from its
+    workers' STATS replies)."""
+    if eng.procs:
+        return [sh.stats_full()["io"] for sh in eng.shards]
+    return [sh.tree.io.snapshot() for sh in eng.shards]
+
+
 def scan_mix(eng, name: str, batches: list, live, card) -> dict:
     """One mix's batches through ``Engine.range_scan_batch``, each held
     to the model; the window's launches must be ``merge_path_sm90`` and
     ``interval_sm90`` only, as many as the gated calls."""
-    from repro_torch.kernels import native
-    io0 = [sh.tree.io.snapshot() for sh in eng.shards]
+    io0 = shard_io(eng)
     kc0 = eng.kernel_counters
-    native.reset_launches()
+    reset_counts(eng)
     lat, digests, entries = [], [], 0
     for b in batches:
         t0 = time.perf_counter()
@@ -550,7 +603,7 @@ def scan_mix(eng, name: str, batches: list, live, card) -> dict:
         lat.append(time.perf_counter() - t0)
         entries += check_scans(res, b, live)
         digests.append(scan_digest(res))
-    launches = dict(native.LAUNCHES)
+    launches = counts(eng)
     kc1 = eng.kernel_counters
     calls = {"merge_path_sm90": kc1.merge_calls - kc0.merge_calls,
              "interval_sm90": kc1.interval_calls - kc0.interval_calls}
@@ -571,7 +624,7 @@ def scan_mix(eng, name: str, batches: list, live, card) -> dict:
         f"merge keys {kc1.merge_keys - kc0.merge_keys}, interval stabs "
         f"{kc1.interval_queries - kc0.interval_queries}; results equal the "
         f"model {card}")
-    io1 = [sh.tree.io.snapshot() for sh in eng.shards]
+    io1 = shard_io(eng)
     k0 = kc0.snapshot()
     return {"digests": digests, "launches": calls,
             "io": [{k: b[k] - a[k] for k in ("reads", "writes")}
@@ -848,24 +901,25 @@ def durable_store(wal: str, keys, los, tail, batches, inline, card) -> dict:
     log(f"durable store equals the inline store (level shapes, IOStats, "
         f"kernel counters, lookups); launches {json.dumps(calls)}; wal "
         f"{json.dumps(wal_counters)} (frames a shard {frames}) {card}")
-    return {"launches": calls, "frames": frames, "snap_frames": snap_frames}
+    return {"launches": calls, "frames": frames, "snap_frames": snap_frames,
+            "load_s": load_s, "put_lat": put_lat}
 
 
 def recovered(tag: str, rec, want: dict, batches, scans, live, card,
               model=None) -> dict:
     """A recovered store held to ``want`` (structure and lookup results,
     and with ``scans`` both mixes' digests; with ``model`` the lookups
-    also to the plain model): its launches and what it served."""
-    from repro_torch.kernels import native
-    got = structure(rec)
+    also to the plain model): its launches and what it served.  A procs
+    store's structure is its workers' "recover" level records."""
+    got = proc_structure(rec) if rec.procs else structure(rec)
     assert_same_snapshot(got, want["structure"], "after recovery", tag)
     kc0 = rec.kernel_counters
-    native.reset_launches()
+    reset_counts(rec)
     results, lat = lookups(rec, batches)
     kc1 = rec.kernel_counters
     calls = kc1.cascade_calls - kc0.cascade_calls
     assert calls == rec.num_shards * len(batches), (tag, calls)
-    expect_launches(native.LAUNCHES, {"cascade_sm90": calls},
+    expect_launches(counts(rec), {"cascade_sm90": calls},
                     f"{tag} lookups")
     for (f, v), (wf, wv) in zip(results, want["results"]):
         assert np.array_equal(f, wf) and np.array_equal(v[f], wv[wf]), \
@@ -908,11 +962,19 @@ def recover_checked(wal: str, tag: str, **kw):
     return rec, merges
 
 
+def first_batches(scans: dict, n: int) -> dict:
+    """Phase 2b's scan mixes cut to their first ``n`` batches."""
+    return {"batches": {k: b[:n] for k, b in scans["batches"].items()},
+            "mixes": {k: {"digests": m["digests"][:n]}
+                      for k, m in scans["mixes"].items()}}
+
+
 def durable_phase(keys, los, tail, batches, live, inline, scans,
-                  card) -> dict:
+                  card) -> tuple[dict, dict]:
     """Phase 2d: the durable store and its three recoveries, in a
     temporary directory removed at the end (also on failure); returns
-    the launches by path for each kernel."""
+    the launches by path for each kernel, and the durable store's load
+    and full-replay times."""
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip_smoke_wal_")
     try:
@@ -927,19 +989,23 @@ def durable_phase(keys, los, tail, batches, live, inline, scans,
 def durable_checks(root, keys, los, tail, batches, live, inline, scans,
                    card) -> dict:
     """The durable store under ``root``, then ``recover`` by full replay,
-    from the snapshot plus the tail, and of a copy with a torn frame."""
+    from the snapshot plus the tail, and of a copy with a torn frame.
+    The recovered stores scan the first ``RECOVERED_SCAN_BATCHES``
+    batches of each mix."""
     from repro_torch.durable import WalReader, replay_frame
     from repro_torch.kernels import native
     wal = os.path.join(root, "wal")
     live_store = durable_store(wal, keys, los, tail, batches, inline, card)
     frames, snap_frames = live_store["frames"], live_store["snap_frames"]
     los_all = np.concatenate([los, tail])
+    scans = first_batches(scans, RECOVERED_SCAN_BATCHES)
 
     # The full log, then the snapshot plus the WAL tail.
     rec, full_merges = recover_checked(wal, "full replay",
                                        use_snapshot=False)
     assert rec.recovery["snapshot_loaded"] == 0
     assert rec.recovery["frames_replayed"] == sum(frames)
+    replay_s = rec.recovery["wall_s"]
     want = {"structure": {k: inline["lookups"][k]
                           for k in ("levels", "seq", "entries")},
             "results": inline["results"][1]}
@@ -1002,6 +1068,8 @@ def durable_checks(root, keys, los, tail, batches, live, inline, scans,
         "one-shard store of its surviving frames (level shapes, seq, "
         "entries, lookups); shards 1-7 equal the full replay")
 
+    timing = {"load_s": live_store["load_s"],
+              "put_lat": live_store["put_lat"], "replay_s": replay_s}
     return {
         "merge_path_sm90": {
             "durable store": live_store["launches"]["merge_path_sm90"],
@@ -1016,13 +1084,312 @@ def durable_checks(root, keys, los, tail, batches, live, inline, scans,
             "torn-tail reference": ref_lookups},
         "interval_sm90": {
             "recovered scans": full["interval_sm90"]
-            + snap["interval_sm90"]}}
+            + snap["interval_sm90"]}}, timing
+
+
+# ----------------------------------------------------- worker processes
+PROCS = 4  # workers of the procs store: two shards each, all on cuda:0
+
+
+def level_records(descs: list) -> list:
+    """Manifest level records less what differs between processes or
+    moves between edits: run uids (a per-process counter) and the
+    tree's ``seq`` (recorded at the last structural edit)."""
+    out = []
+    for d in descs:
+        d = {k: v for k, v in d.items() if k != "seq"}
+        d["levels"] = [None if l is None else
+                       {k: v for k, v in l.items() if k != "uid"}
+                       for l in d["levels"]]
+        out.append(d)
+    return out
+
+
+def described(eng) -> list:
+    """``describe_tree`` of every shard of an in-process store."""
+    from repro_torch.durable.manifest import describe_tree
+    return [describe_tree(sh.tree) for sh in eng.shards]
+
+
+def proc_snapshot(eng) -> dict:
+    """What the parent of a procs store sees of it: each shard's entries
+    and ``IOStats`` from its worker's STATS reply, the kernel counters,
+    and the level records the workers shipped into the manifest."""
+    fulls = [sh.stats_full() for sh in eng.shards]
+    descs = [eng.manifest.shard_record(s) for s in range(eng.num_shards)]
+    return {"levels": [[l["n"] if l else 0 for l in d["levels"]]
+                       for d in descs],
+            "entries": [f["entries"] for f in fulls],
+            "io": [f["io"] for f in fulls],
+            "kernels": eng.kernel_counters.snapshot(),
+            "records": level_records(descs)}
+
+
+def proc_structure(eng) -> dict:
+    """``structure`` of a procs store just recovered: its workers'
+    "recover" records are current, ``seq`` included."""
+    descs = [eng.manifest.shard_record(s) for s in range(eng.num_shards)]
+    return {"levels": [[l["n"] if l else 0 for l in d["levels"]]
+                       for d in descs],
+            "seq": [d["seq"] for d in descs],
+            "entries": [sh.stats_full()["entries"] for sh in eng.shards]}
+
+
+def inline_view(inline: dict, when: str) -> dict:
+    """The inline store at ``when`` ("load" or "lookups") as a procs
+    store's parent sees one."""
+    snap = inline[when]
+    return {**{k: snap[k] for k in ("levels", "entries", "io", "kernels")},
+            "records": level_records(inline[f"desc_{when}"])}
+
+
+def shard_calls(eng) -> list[dict]:
+    """Every shard's gated kernel calls so far, by the kernel each one
+    launches."""
+    return [{"cascade_sm90": k.cascade_calls, "merge_path_sm90": k.merge_calls,
+             "interval_sm90": k.interval_calls, "bloom_sm90": k.bloom_calls}
+            for k in (sh.kernels for sh in eng.shards)]
+
+
+def expect_worker_launches(eng, before: list, what: str,
+                           rows: list | None = None) -> list[dict]:
+    """Each worker's launches since ``reset_counts`` (``rows``, or read
+    now) are exactly its shards' gated calls since ``before``: so no PR
+    12 kernel, and the parent launched nothing.  Returns them a
+    worker."""
+    from repro_torch.kernels import native
+    assert not any(native.LAUNCHES.values()), \
+        f"{what}: the parent of a procs store launched {native.LAUNCHES}"
+    pool = eng._proc_pool
+    if rows is None:
+        rows = pool.launches(per_worker=True)
+    after = shard_calls(eng)
+    for pw, row in zip(pool.workers, rows):
+        calls = {k: sum(after[s][k] - before[s][k] for s in pw.spec.shard_ids)
+                 for k in after[0]}
+        expect_launches(row, calls, f"{what}, worker {pw.spec.worker_id}")
+    return rows
+
+
+def card_processes() -> str:
+    """nvidia-smi's memory a process on the card, or "not measured"."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return "not measured"
+    rows = out.stdout.strip().replace("\n", "; ")
+    return rows if out.returncode == 0 and rows else "not measured"
+
+
+def nonzero(rows: list[dict]) -> str:
+    return json.dumps([{k: v for k, v in r.items() if v} for r in rows])
+
+
+def procs_phase(keys, los, tail, batches, live, inline, scans, durable,
+                card) -> dict:
+    """Phase 2e: the procs store and its two recoveries, in a temporary
+    directory removed at the end (also on failure); returns the launches
+    by path for each kernel."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_procs_")
+    try:
+        out = procs_checks(os.path.join(root, "wal"), keys, los, tail,
+                           batches, live, inline, scans, durable, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 2e: {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def procs_store(wal, keys, los, tail, batches, live, inline, scans,
+                durable, card) -> dict:
+    """The live procs store: the inline store's stream through 4 worker
+    processes (two shards each, every shard on cuda:0) with a WAL,
+    held to the inline store after the load and after the lookups, and
+    the first batches of both scan mixes held to its digests."""
+    t0 = time.perf_counter()
+    eng, _, _ = build_slice(len(keys), 8, 0, "cuda", procs=PROCS, devices=1,
+                            wal_dir=wal, fsync="batch")
+    try:
+        return procs_store_checks(eng, t0, wal, keys, los, tail, batches,
+                                  live, inline, scans, durable, card)
+    finally:
+        eng.close()
+
+
+def procs_store_checks(eng, t0, wal, keys, los, tail, batches, live, inline,
+                       scans, durable, card) -> dict:
+    """``procs_store``'s checks on the built store; returns its launches
+    by kernel for the load and lookups, and for the scans."""
+    up = eng._proc_pool.startup_s
+    homes = set(eng.device_map().values())
+    assert eng.procs == PROCS and eng.devices is not None and \
+        len(homes) == 1, (eng.procs, eng.device_map())
+    log(f"procs store: {PROCS} workers (shards "
+        f"{[pw.spec.shard_ids for pw in eng._proc_pool.workers]}, every one "
+        f"on {homes.pop()}), spawned in {up['spawn']:.3f} s, all ready after "
+        f"{up['ready']:.3f} s, engine built in "
+        f"{time.perf_counter() - t0:.3f} s {card}")
+    reset_counts(eng)
+    before = shard_calls(eng)
+    load_s, put_lat = load(eng, keys, los)
+    rows = expect_worker_launches(eng, before, "procs store load")
+    assert_same_snapshot(proc_snapshot(eng), inline_view(inline, "load"),
+                         "after the load", "procs store")
+    n_ops = len(keys) + los.size
+    log(f"load, procs store (fsync a batch, WAL on {fs_type(wal)}): "
+        f"{load_s:.3f} s = {n_ops / load_s:.1f} ops/s; {latency_ms(put_lat)}; "
+        f"durable inline store (phase 2d): {durable['load_s']:.3f} s = "
+        f"{n_ops / durable['load_s']:.1f} ops/s; "
+        f"{latency_ms(durable['put_lat'])}; launches a worker {nonzero(rows)} "
+        f"{card}")
+    reset_counts(eng)
+    before = shard_calls(eng)
+    first, _ = lookups(eng, batches)
+    for lo in tail:
+        range_deletes(eng, lo)
+    second, lat = lookups(eng, batches)
+    lookup_rows = expect_worker_launches(eng, before, "procs store lookups")
+    for pw, row in zip(eng._proc_pool.workers, lookup_rows):
+        assert row["cascade_sm90"] == \
+            2 * len(batches) * len(pw.spec.shard_ids), row
+    for got, want in zip(first + second, inline["results"][0]
+                         + inline["results"][1]):
+        assert all(np.array_equal(g, w) for g, w in zip(got, want)), \
+            "procs store's lookups differ from the inline store's"
+    assert_same_snapshot(proc_snapshot(eng), inline_view(inline, "lookups"),
+                         "after the lookups", "procs store")
+    report_lookups("lookups, procs store (results equal the inline "
+                   "store's)", lat, card)
+    report_lookups("lookups, inline store", inline["lookup_lat"], card)
+    cut = first_batches(scans, RECOVERED_SCAN_BATCHES)
+    out = {"launches": {"merge_path_sm90": sum(r["merge_path_sm90"]
+                                               for r in rows),
+                        "cascade_sm90": sum(r["cascade_sm90"]
+                                            for r in lookup_rows)},
+           "scans": {"merge_path_sm90": 0, "interval_sm90": 0}}
+    pool = eng._proc_pool
+    for name, mix in cut["mixes"].items():
+        before = shard_calls(eng)
+        got = scan_mix(eng, f"{name}, procs store", cut["batches"][name],
+                       live, card)
+        assert got["digests"] == mix["digests"], f"procs store: {name} scans"
+        # scan_mix read the workers' counts at its end.
+        rows = expect_worker_launches(
+            eng, before, f"procs store {name} scans",
+            [pool.worker_launches[pw.spec.worker_id]
+             for pw in pool.workers])
+        log(f"scans {name}, procs store: launches a worker {nonzero(rows)}")
+        for k, v in got["launches"].items():
+            out["scans"][k] += v
+    log("procs store: scans equal the inline store's digests; each "
+        "worker's launches are its shards' gated calls")
+    t = eng.stats()["proc"]
+    dq = t["dequeue_latency_us"]
+    pool.launches()  # reads each worker's allocator peak too
+    log(f"procs transport: {t['requests']} requests, {t['bytes_sent']} B "
+        f"sent, {t['bytes_received']} B received; dequeue p50 "
+        f"{dq['p50_us']} us, p99 {dq['p99_us']} us ({dq['count']} "
+        f"replies); worker allocator peaks "
+        f"{json.dumps(pool.worker_peak_allocated)} B; per process on the "
+        f"card (nvidia-smi, context included; worker pids "
+        f"{[pw.proc.pid for pw in pool.workers]}, parent {os.getpid()}): "
+        f"{card_processes()} {card}")
+    log("procs store, device: busy share not measured (the parent's "
+        "profiler sees only its own process, and the kernels run in the "
+        "workers')")
+    return out
+
+
+def procs_checks(wal, keys, los, tail, batches, live, inline, scans,
+                 durable, card) -> dict:
+    """The procs store under ``wal``, then ``recover`` of its directory
+    with 4 workers (each replays its own streams) and in-process, both
+    held to the inline store in structure, lookups and scan digests."""
+    from repro_torch.durable import recover
+    from repro_torch.engine import EngineConfig
+    from repro_torch.kernels import native
+    live_store = procs_store(wal, keys, los, tail, batches, live, inline,
+                             scans, durable, card)
+    cut = first_batches(scans, RECOVERED_SCAN_BATCHES)
+    want = {"structure": {k: inline["lookups"][k]
+                          for k in ("levels", "seq", "entries")},
+            "results": inline["results"][1]}
+    native.reset_launches()
+    rec = recover(wal, config=EngineConfig(procs=PROCS, devices=1))
+    try:
+        got, merges, frames = procs_recovery(rec, want, batches, cut, live,
+                                             inline, durable, card)
+    finally:
+        rec.close()
+    rec, in_merges = recover_checked(wal, "in-process, of the procs WAL")
+    try:
+        assert rec.recovery["frames_replayed"] == frames
+        assert in_merges == merges, (in_merges, merges)
+        inproc = recovered("in-process recovery of the procs WAL", rec, want,
+                           batches, cut, live, card)
+    finally:
+        rec.close()
+    log("procs store and both recoveries of its WAL equal the inline store "
+        "(IOStats, kernel counters, level records, lookups, scan digests)")
+    return {
+        "merge_path_sm90": {
+            "procs store": live_store["launches"]["merge_path_sm90"]
+            + live_store["scans"]["merge_path_sm90"],
+            "procs recoveries": merges + in_merges,
+            "procs recovered scans": got["merge_path_sm90"]
+            + inproc["merge_path_sm90"]},
+        "cascade_sm90": {
+            "procs store": live_store["launches"]["cascade_sm90"],
+            "procs recovered lookups": got["cascade_sm90"]
+            + inproc["cascade_sm90"]},
+        "interval_sm90": {
+            "procs store": live_store["scans"]["interval_sm90"],
+            "procs recovered scans": got["interval_sm90"]
+            + inproc["interval_sm90"]}}
+
+
+def procs_recovery(rec, want, batches, cut, live, inline, durable, card):
+    """The recovery with 4 workers held to ``want`` and to the inline
+    store's level records; returns what it served, its replay's merges
+    and its frames."""
+    r, up = rec.recovery, rec._proc_pool.startup_s
+    assert rec.procs == PROCS and r["frames_replayed"] > 0, r
+    # Fresh workers: their counts are the replay's, their shards' merge
+    # calls (shipped with READY) the replay's gated merges.
+    rows = expect_worker_launches(rec, [dict.fromkeys(c, 0)
+                                        for c in shard_calls(rec)],
+                                  "procs recovery")
+    merges = sum(row["merge_path_sm90"] for row in rows)
+    assert merges == rec.kernel_counters.merge_calls > 0, rows
+    inside = [{"build_s": round(pw.ready["build_s"], 3),
+               "read_s": round(sum(i["read_s"] for i in
+                                   pw.ready["shards"].values()), 3),
+               "replay_s": round(sum(i["replay_s"] for i in
+                                     pw.ready["shards"].values()), 3)}
+              for pw in rec._proc_pool.workers]
+    log(f"recovery, {PROCS} workers: {r['wall_s']:.3f} s ({up['spawn']:.3f} "
+        f"s to spawn, every worker replayed and ready after "
+        f"{up['ready']:.3f} s; inside each worker {json.dumps(inside)}), "
+        f"{r['frames_replayed']} frames replayed = "
+        f"{r['frames_replayed'] / r['wall_s']:.1f} frames/s; in-process full "
+        f"replay (phase 2d): {durable['replay_s']:.3f} s; launches a worker "
+        f"{nonzero(rows)} {card}")
+    assert level_records([rec.manifest.shard_record(s)
+                          for s in range(rec.num_shards)]) == \
+        level_records(inline["desc_lookups"]), "procs recovery's records"
+    got = recovered(f"procs recovery ({PROCS} workers)", rec, want, batches,
+                    cut, live, card)
+    return got, merges, r["frames_replayed"]
 
 
 def store_phases(card: str) -> list[dict]:
-    """Phases 2-4: the store's slice (with the scheduler and the durable
-    stores), its per-level route and its eight kernels against their
-    plain versions; returns their records."""
+    """Phases 2-4: the store's slice (with the scheduler, durable and
+    procs stores), its per-level route and its eight kernels against
+    their plain versions; returns their records."""
     from repro_torch.kernels import native
 
     # 2. the slice, cascade on: counts are zeroed just before the load
@@ -1036,6 +1403,7 @@ def store_phases(card: str) -> list[dict]:
     load_s, put_lat = load(eng, keys, los)
     load_launches = dict(native.LAUNCHES)
     snap_load = store_snapshot(eng)
+    desc_load = described(eng)
     kc0 = eng.kernel_counters
     results, lat = lookups(eng, batches)
     first_results = results
@@ -1088,7 +1456,8 @@ def store_phases(card: str) -> list[dict]:
         f"cascade_sm90 launches {main2['cascade_sm90']}")
     inline = {"load": snap_load, "lookups": store_snapshot(eng),
               "results": (first_results, results), "load_s": load_s,
-              "put_lat": put_lat}
+              "put_lat": put_lat, "lookup_lat": lat, "desc_load": desc_load,
+              "desc_lookups": described(eng)}
     log(device_busy(eng, batches[:4]))
 
     # 2b. range scans on the same store at the default gates, and 2c.
@@ -1097,9 +1466,12 @@ def store_phases(card: str) -> list[dict]:
     scans = scan_phase(eng, live, card)
     sched_launches = scheduler_phase(keys, los, los_all[len(los):], batches,
                                      live, inline, scans, card)
-    # 2d. a third store with a write-ahead log, and its recoveries.
-    durable_launches = durable_phase(keys, los, los_all[len(los):], batches,
-                                     live, inline, scans, card)
+    # 2d. a third store with a write-ahead log, and its recoveries; 2e.
+    # a fourth with its shards in worker processes, and its recoveries.
+    durable_launches, durable = durable_phase(
+        keys, los, los_all[len(los):], batches, live, inline, scans, card)
+    procs_launches = procs_phase(keys, los, los_all[len(los):], batches,
+                                 live, inline, scans, durable, card)
     path = {"merge_path_sm90": {"load": main_launches["merge_path_sm90"],
                                 "scans": scans["launches"]["merge_path_sm90"],
                                 "scheduler store": sched_launches[
@@ -1108,8 +1480,9 @@ def store_phases(card: str) -> list[dict]:
                              "scheduler store lookups": sched_launches[
                                  "cascade_sm90"]},
             "interval_sm90": {"scans": scans["launches"]["interval_sm90"]}}
-    for name, counts in durable_launches.items():
-        path[name].update(counts)
+    for by_path in (durable_launches, procs_launches):
+        for name, n in by_path.items():
+            path[name].update(n)
 
     # 3. the per-level route on the same store: cascade off, and every
     # probe of a level takes a kernel.  The default gates would keep the
@@ -1144,15 +1517,15 @@ def store_phases(card: str) -> list[dict]:
 
     # 4. each kernel against its plain version at the path's shapes; the
     # launches of a Hopper kernel are those of every path that ran it.
-    for name, counts in path.items():
+    for name, by_path in path.items():
         launches = main_launches if name != "interval_sm90" \
             else route_launches
-        launches[name] = sum(counts.values())
+        launches[name] = sum(by_path.values())
     records = kernel_checks(eng, views, batches, main_launches,
                             route_launches, card)
     by_name = {r["name"]: r for r in records}
-    for name, counts in path.items():
-        by_name[name]["path_launches"] = counts
+    for name, by_path in path.items():
+        by_name[name]["path_launches"] = by_path
     by_name["interval_sm90"]["scan_ms"] = scan_interval_times(
         eng, scans["stabs"], card)
     eng.close()

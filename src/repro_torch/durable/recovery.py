@@ -12,7 +12,9 @@ alone:
 3. **Snapshot fast path** — if the manifest points at a published
    snapshot whose recorded WAL positions are covered by the durable
    prefix, load it and replay only the *tail*; otherwise replay the
-   whole log from an empty store.
+   whole log from an empty store.  With ``EngineConfig.procs`` set, the
+   worker processes replay their own streams in parallel, from the
+   whole log, and the parent records their level records.
 4. **Replay** — frames re-enter through the shard executors' own write
    paths (``put_batch`` / ``delete_batch`` / ``range_delete_arrays``,
    FLUSH markers through ``LSMTree.flush``).  Because every batch-insert
@@ -95,7 +97,7 @@ def recover(wal_dir: str, *, config=None, use_snapshot: bool = True):
     """
     from dataclasses import replace
 
-    from ..engine.engine import Engine
+    from ..engine.engine import Engine, _resolve_procs
     from ..engine.executor import EngineConfig
 
     t0 = time.perf_counter()
@@ -111,6 +113,18 @@ def recover(wal_dir: str, *, config=None, use_snapshot: bool = True):
     # default config's device is the card (no CPU fallback).
     cfg = replace(config or EngineConfig(), partition=partition,
                   wal_dir=None)
+
+    # Procs mode: each worker replays its own shard streams during
+    # startup (WAL ownership lives with the worker), the parent loads
+    # the manifest and records the shipped-back "recover" level
+    # records.  No snapshot fast path — worker trees rebuild from the
+    # full log (take_snapshot is refused on procs engines anyway).
+    if _resolve_procs(cfg, num_shards):
+        engine = Engine(num_shards, strategy=strategy, lsm_config=lsm,
+                        gloran_config=gloran, config=cfg,
+                        _recover_from=wal_dir)
+        engine.recovery["wall_s"] = time.perf_counter() - t0
+        return engine
 
     def fresh() -> "Engine":
         return Engine(num_shards, strategy=strategy, lsm_config=lsm,

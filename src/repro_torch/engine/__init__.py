@@ -10,13 +10,16 @@ device-resident ``DeviceFilterRegistry`` packs, or the per-level bloom
 and interval kernels when the cascade declines; compactions order
 their merges through the merge-rank kernel.  With
 ``EngineConfig.wal_dir`` every shard plan's writes are logged before
-they run (``repro_torch.durable``).
+they run (``repro_torch.durable``).  With ``EngineConfig.procs`` the
+shards run in spawned worker processes (``procpool``), and with
+``EngineConfig.devices`` they are spread over the cards.
 """
 
 from .cache import BlockCache
 from .engine import Engine
 from .executor import EngineConfig, ShardExecutor
 from .pending import PendingBatch
+from .procpool import ProcPool, ProcShard, WorkerSpec
 from .plan import (KIND_CODES, KIND_NAMES, OP_DELETE, OP_GET, OP_PUT,
                    OP_RANGE_DELETE, OP_RANGE_SCAN, OpBatch, Plan, Planner,
                    PlanStep, ShardPlan)
@@ -27,7 +30,8 @@ from .stats import EngineStats, KernelCounters, merge_io_snapshots
 __all__ = ["BlockCache", "Engine", "EngineConfig", "ShardExecutor",
            "ShardRouter", "EngineStats", "KernelCounters",
            "merge_io_snapshots", "OpBatch", "Plan", "Planner", "PlanStep",
-           "ShardPlan", "PendingBatch", "CascadeView",
+           "ShardPlan", "PendingBatch", "ProcPool", "ProcShard",
+           "WorkerSpec", "CascadeView",
            "DeviceFilterRegistry", "KIND_CODES", "KIND_NAMES",
            "OP_PUT", "OP_DELETE", "OP_GET", "OP_RANGE_DELETE",
            "OP_RANGE_SCAN"]

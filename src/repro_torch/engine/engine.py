@@ -9,12 +9,14 @@ results back in request order.  ``get_batch``, ``range_scan_batch``,
 ``execute`` and the other conveniences are thin wrappers that build an
 ``OpBatch`` and block on ``submit``.
 
-Every shard keeps its filter state on ``EngineConfig.device`` and runs
-its kernels there.  This package serves writes, point lookups and range
-scans, with background compaction on or off, and with a write-ahead log
-and level manifest when ``EngineConfig.wal_dir`` is set (reopened after
-a crash by ``repro_torch.durable.recover``); worker processes raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Every shard keeps its filter state on its home device (by default
+``EngineConfig.device``; ``EngineConfig.devices`` spreads the shards over
+the cards) and runs its kernels there.  This package serves writes,
+point lookups and range scans, with background compaction on or off,
+with a write-ahead log and level manifest when ``EngineConfig.wal_dir``
+is set (reopened after a crash by ``repro_torch.durable.recover``), and
+with the shards in worker processes when ``EngineConfig.procs`` is set
+(``engine/procpool.py``), each worker holding a CUDA context of its own.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from ..core.gloran import GloranConfig
-from ..device import resolve_device
+from ..device import resolve_device, shard_devices
 from ..durable.manifest import LevelManifest, engine_config_doc
 from ..durable.wal import WalWriter, wal_has_frames
 from ..lsm import LSMConfig, LSMTree
@@ -41,6 +43,14 @@ from .router import ShardRouter
 from .stats import EngineStats, KernelCounters, merge_io_snapshots
 
 _EMPTY_KV = (np.zeros(0, np.uint64), np.zeros(0, np.uint64))
+
+
+def _resolve_procs(config: EngineConfig, num_shards: int) -> int:
+    """Worker-process count, or 0 for the in-process path: None/0 =
+    off (byte-identical in-process execution); N spawns min(N,
+    num_shards) workers, shards assigned round-robin."""
+    want = int(config.procs or 0)
+    return min(want, num_shards) if want > 0 else 0
 
 
 def _merge_cache_snaps(snaps: list) -> dict:
@@ -103,7 +113,8 @@ class Engine:
     def __init__(self, num_shards: int = 1, strategy: str = "gloran",
                  lsm_config: LSMConfig | None = None,
                  gloran_config: GloranConfig | None = None,
-                 config: EngineConfig | None = None):
+                 config: EngineConfig | None = None,
+                 _recover_from: str | None = None):
         self.config = config or EngineConfig()
         self.device = resolve_device(self.config.device)
         self.num_shards = int(num_shards)
@@ -120,26 +131,52 @@ class Engine:
                                   partition=self.config.partition,
                                   universe=base.key_universe)
         self.planner = Planner(self.router)
+        # Per-shard home devices (None = every shard on ``self.device``):
+        # each shard's registry packs and kernel launches live on its
+        # device.
+        self.devices = shard_devices(self.num_shards, self.config.device,
+                                     self.config.devices)
+        self.background = bool(self.config.scheduler)
         # A directory that already holds acknowledged frames is refused
         # — recovery must fold them in first, or acked writes would be
-        # silently orphaned.
-        if self.config.wal_dir:
+        # silently orphaned.  (``_recover_from`` is that fold-in:
+        # ``repro_torch.durable.recover`` passes it in procs mode so each
+        # worker replays its own stream before serving.)
+        if self.config.wal_dir and not _recover_from:
             if wal_has_frames(self.config.wal_dir):
                 raise RuntimeError(
                     f"WAL at {self.config.wal_dir} holds acknowledged "
                     "frames; open it with repro_torch.durable.recover() "
                     "instead of a fresh Engine")
-        self.shards = [
-            ShardExecutor(LSMTree(base, strategy=strategy,
-                                  gloran_config=gloran_config),
-                          self.config, self.device)
-            for _ in range(self.num_shards)]
-        self.background = bool(self.config.scheduler)
-        if self.background:
-            for sh in self.shards:
-                sh.attach_scheduler(CompactionScheduler(
-                    sh.tree, max_frozen=self.config.max_frozen,
-                    tombstone_trigger=self.config.tombstone_trigger))
+        # Process-parallel shard execution (engine/procpool.py).
+        self.procs = _resolve_procs(self.config, self.num_shards)
+        self._proc_pool = None
+        if _recover_from and not self.procs:
+            raise RuntimeError("_recover_from is the procs-mode "
+                               "recovery path; use durable.recover()")
+        homes = self.devices or [self.device] * self.num_shards
+        if self.procs:
+            from .procpool import ProcPool
+            self._proc_pool = ProcPool(
+                num_shards=self.num_shards, procs=self.procs,
+                strategy=strategy, lsm_config=base,
+                gloran_config=gloran_config, config=self.config,
+                background=self.background,
+                device_ids=[str(d) for d in homes],
+                wal_dir=self.config.wal_dir or _recover_from,
+                replay=bool(_recover_from))
+            self.shards = self._proc_pool.shards
+        else:
+            self.shards = [
+                ShardExecutor(LSMTree(base, strategy=strategy,
+                                      gloran_config=gloran_config),
+                              self.config, home)
+                for home in homes]
+            if self.background:
+                for sh in self.shards:
+                    sh.attach_scheduler(CompactionScheduler(
+                        sh.tree, max_frozen=self.config.max_frozen,
+                        tombstone_trigger=self.config.tombstone_trigger))
         self.stats_ = EngineStats()
         self.metrics = MetricsRegistry()
         self.pipeline_default = bool(self.config.pipeline)
@@ -147,13 +184,44 @@ class Engine:
         self._inflight: list[PendingBatch] = []
         self._inflight_lock = threading.Lock()
         # Durability (repro_torch.durable): a configured wal_dir attaches
-        # a per-shard WAL stream + the level manifest.
+        # a per-shard WAL stream + the level manifest.  In procs mode the
+        # WAL writers live INSIDE the workers (append-before-ack holds
+        # within each worker's run_plan); the parent owns the manifest,
+        # applying structure edits shipped back with each reply.
         self.wal_dir: str | None = None
         self.manifest = None
         self.recovery = {"wall_s": 0.0, "frames_replayed": 0,
                          "snapshot_loaded": 0}
-        if self.config.wal_dir:
+        if self.procs:
+            d = self.config.wal_dir or _recover_from
+            if d:
+                self._attach_proc_durability(
+                    d, recovered=bool(_recover_from))
+        elif self.config.wal_dir:
             self._attach_durability(self.config.wal_dir)
+
+    def _attach_proc_durability(self, wal_dir: str, *,
+                                recovered: bool) -> None:
+        """Procs-mode durability wiring: manifest in the parent, WAL
+        writers in the workers (already attached by ProcPool)."""
+        self.wal_dir = wal_dir
+        if recovered:
+            manifest = LevelManifest.load(os.path.join(wal_dir,
+                                                       "manifest"))
+        else:
+            manifest = LevelManifest(
+                os.path.join(wal_dir, "manifest"),
+                config=engine_config_doc(self), fsync=False)
+            manifest.commit(fsync=self.config.fsync != "never")
+        self.manifest = manifest
+        for sh in self.shards:
+            sh.manifest = manifest
+        if recovered:
+            for s, desc in sorted(
+                    self._proc_pool.recovered_descs.items()):
+                manifest.record_structure_desc(s, desc, reason="recover")
+            self.recovery["frames_replayed"] = \
+                self._proc_pool.frames_replayed
 
     def _attach_durability(self, wal_dir: str, *, manifest=None,
                            writers: list | None = None) -> None:
@@ -301,15 +369,19 @@ class Engine:
     def close(self) -> None:
         """Deterministic shutdown (idempotent): drain in-flight batches
         and pending scheduler jobs, join the per-shard worker pools, and
-        flush + fsync + close every WAL stream — tests and benches never
-        leak worker threads or half-written segments."""
+        flush + fsync + close every WAL stream (in procs mode: close
+        the worker processes, which close theirs) — tests and benches
+        never leak worker threads, processes or half-written segments."""
         self.drain()
         if self._pools is not None:
             for p in self._pools:
                 p.shutdown(wait=True)
             self._pools = None
-        for sh in self.shards:
-            sh.close()
+        if self._proc_pool is not None:
+            self._proc_pool.close()
+        else:
+            for sh in self.shards:
+                sh.close()
 
     def __enter__(self) -> "Engine":
         return self
@@ -402,6 +474,12 @@ class Engine:
             out.merge(sh.kernels)
         return out
 
+    def device_map(self) -> dict:
+        """shard id -> home device string (``self.device``'s on the
+        single-device path)."""
+        homes = self.devices or [self.device] * self.num_shards
+        return {s: str(d) for s, d in enumerate(homes)}
+
     def cache_snapshot(self) -> dict:
         return _merge_cache_snaps([sh.cache_snapshot()
                                    for sh in self.shards])
@@ -418,17 +496,30 @@ class Engine:
 
     def stats(self) -> dict:
         self.drain()
+        # ONE per-shard ledger document each — in-process executors
+        # read their tree directly, proc shards round-trip a STATS
+        # message to their worker.  Everything below aggregates these
+        # documents only, so both modes share one code path, and the
+        # values are cumulative snapshots: calling stats() twice
+        # without intervening work returns identical numbers.
         fulls = [sh.stats_full() for sh in self.shards]
         staging = [{"shard": s, **f["staging"]}
                    for s, f in enumerate(fulls)
                    if f["staging"] is not None]
         if staging:
             self.stats_.record_staging(staging)
+        device_map = self.device_map()
         out = {
             "num_shards": self.num_shards,
             "partition": self.router.partition,
             "pipeline": self.pipeline_default,
             "device": str(self.device),
+            "procs": self.procs,
+            "devices": {
+                "enabled": self.devices is not None,
+                "distinct": len(set(device_map.values())),
+                "per_shard": device_map,
+            },
             "entries": sum(f["entries"] for f in fulls),
             "engine": self.stats_.snapshot(),
             "io": merge_io_snapshots([f["io"] for f in fulls]),
@@ -447,7 +538,8 @@ class Engine:
             "pipelined_batches": self.stats_.pipelined_batches,
             "serial_batches": self.stats_.serial_batches,
             "entries": out["entries"],
-            "num_shards": self.num_shards})
+            "num_shards": self.num_shards,
+            "devices": out["devices"]["distinct"]})
         if self.stats_.staging:
             m.absorb("staging", {k: v for k, v in
                                  self.stats_.staging.items()
@@ -490,6 +582,15 @@ class Engine:
                     agg[k] = agg.get(k, 0) + v
             out["wal"] = agg
             m.absorb("wal", agg)
+        # Shared-memory transport ledger (procs mode): bytes shipped
+        # each way + the enqueue->dequeue latency histogram.
+        if self._proc_pool is not None:
+            t = self._proc_pool.transport_snapshot()
+            out["proc"] = t
+            m.absorb("proc", {k: v for k, v in t.items()
+                              if k != "dequeue_latency_us"})
+            m.absorb("proc.dequeue_latency_us",
+                     t["dequeue_latency_us"])
         m.absorb("recovery", self.recovery)
         out["metrics"] = m.snapshot()
         return out

@@ -55,7 +55,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core.eve import fold64to32
-from ..device import resolve_device
+from ..device import on_device, resolve_device
 # Submodule imports (not the package) keep the engine <-> durable import
 # graph acyclic; durable.manifest depends only on durable.atomic.
 from ..durable.manifest import structure_fingerprint
@@ -74,16 +74,18 @@ from .plan import (KIND_NAMES, OP_DELETE, OP_GET, OP_PUT, OP_RANGE_DELETE,
 from .registry import DeviceFilterRegistry, _U32_LIMIT
 from .stats import KernelCounters
 
-_DEFERRED = {
-    "procs": "queue A: engine/procpool.py",
-}
-
 
 @dataclass
 class EngineConfig:
     """Knobs of the batched execution layer (not the LSM itself)."""
 
     device: str = "cuda"  # torch device of every shard's state + kernels
+    # Per-shard home devices (``device.shard_devices``): None = auto
+    # (every shard on ``device`` where at most one card is visible, else
+    # round-robin over up to ``num_shards`` cards); 0 = every shard on
+    # ``device``; N = round-robin over cuda:0 .. cuda:min(N, count) - 1.
+    # With ``device="cpu"`` every shard is on the CPU.
+    devices: int | None = None
     partition: str = "hash"  # "hash" | "range" key partitioning
     pipeline: bool = True  # concurrent shard plans
     cache_blocks: int = 0  # per-shard block cache capacity; 0 = off
@@ -126,16 +128,16 @@ class EngineConfig:
     wal_dir: str | None = None
     fsync: str = "batch"
     wal_segment_bytes: int = 4 << 20
-    # Not in this package yet; setting it raises NotImplementedError
-    # naming the ROADMAP item that ports it.
+    # Process-parallel shard execution (``engine/procpool.py``): None or
+    # 0 = in-process; N spawns min(N, num_shards) worker processes, each
+    # with its own CUDA context, shards assigned round-robin and shard
+    # plans shipped as shared-memory columnar frames.  No environment
+    # variable is read.
     procs: int | None = None
+    # Capacity of each per-direction shared-memory transport ring.
+    proc_ring_bytes: int = 32 << 20
 
     def __post_init__(self) -> None:
-        for name, item in _DEFERRED.items():
-            if getattr(self, name) not in (None, 0, False):
-                raise NotImplementedError(
-                    f"EngineConfig.{name} is not ported to repro_torch "
-                    f"yet: ROADMAP {item}")
         if self.fsync not in FSYNC_POLICIES:
             raise ValueError(f"EngineConfig.fsync={self.fsync!r}: one of "
                              f"{FSYNC_POLICIES}")
@@ -437,9 +439,10 @@ class ShardExecutor:
             return None
         if resolved.any() and int(seqs[resolved].max()) >= _U32_LIMIT:
             return None
-        maybe, hit, gl_cov, pos = cascade_lookup(
-            keys.astype(np.uint32), fold64to32(keys),
-            seqs.astype(np.uint32), resolved, view.state)
+        with on_device(self.device):
+            maybe, hit, gl_cov, pos = cascade_lookup(
+                keys.astype(np.uint32), fold64to32(keys),
+                seqs.astype(np.uint32), resolved, view.state)
         self.kernels.cascade_calls += 1
         self.kernels.cascade_queries += len(keys)
         return CascadeVerdict(slots=view.slots, maybe=maybe, hit=hit,
@@ -463,8 +466,9 @@ class ShardExecutor:
                     or int(ka[-1]) >= _U32_LIMIT
                     or int(kb[-1]) >= _U32_LIMIT):
                 return None
-            pa, pb = merge_ranks(ka.astype(np.uint32),
-                                 kb.astype(np.uint32), self.device)
+            with on_device(self.device):
+                pa, pb = merge_ranks(ka.astype(np.uint32),
+                                     kb.astype(np.uint32), self.device)
             self.kernels.merge_calls += 1
             self.kernels.merge_keys += n
             return pa, pb
@@ -482,9 +486,10 @@ class ShardExecutor:
         bb = lvl.bloom
         if (cfg.use_bloom_kernel and len(keys) >= cfg.kernel_min_batch
                 and len(lvl) >= cfg.kernel_min_filter):
-            out = bloom_probe(to_device(fold64to32(keys), self.device),
-                              self.registry.bloom_words(lvl),
-                              m_bits=bb.m_bits, seeds=bb.seeds)
+            with on_device(self.device):
+                out = bloom_probe(to_device(fold64to32(keys), self.device),
+                                  self.registry.bloom_words(lvl),
+                                  m_bits=bb.m_bits, seeds=bb.seeds)
             self.kernels.bloom_calls += 1
             self.kernels.bloom_queries += len(keys)
             return to_numpy(out, np.int32).astype(bool)
@@ -507,9 +512,10 @@ class ShardExecutor:
         """One launch over a disjoint level; same I/O as a probe."""
         lo32, hi32, smin32, smax32 = self._level_u32(lvl)
         io.read_blocks(lvl.probe_cost() * len(keys), tag="drtree_probe")
-        out = interval_query(to_device(keys, self.device),
-                             to_device(seqs, self.device),
-                             lo32, hi32, smin32, smax32)
+        with on_device(self.device):
+            out = interval_query(to_device(keys, self.device),
+                                 to_device(seqs, self.device),
+                                 lo32, hi32, smin32, smax32)
         self.kernels.interval_calls += 1
         self.kernels.interval_queries += len(keys)
         return to_numpy(out, np.int32).astype(bool)

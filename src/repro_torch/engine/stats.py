@@ -49,6 +49,19 @@ class KernelCounters:
             self.upload_bytes_by_device[dev] = \
                 self.upload_bytes_by_device.get(dev, 0) + nbytes
 
+    @classmethod
+    def from_snapshot(cls, snap: dict) -> "KernelCounters":
+        """Inverse of ``snapshot()`` — how a shard-worker reply's
+        cumulative kernel ledger rehydrates on the parent side."""
+        out = cls()
+        for k, v in (snap or {}).items():
+            if k == "upload_bytes_by_device":
+                out.upload_bytes_by_device = {str(d): int(b)
+                                              for d, b in v.items()}
+            elif hasattr(out, k):
+                setattr(out, k, int(v))
+        return out
+
     def snapshot(self) -> dict:
         return {
             "interval_calls": self.interval_calls,

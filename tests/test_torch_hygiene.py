@@ -1,9 +1,9 @@
 """The port stands alone and fails loudly.
 
-``repro_torch`` imports neither ``jax`` nor the JAX package, asking for
-CUDA where there is none raises instead of falling back to the CPU,
-the options not ported yet raise, and a kernel that cannot be built
-raises.
+``repro_torch`` imports neither ``jax`` nor the JAX package (nor does
+the code a spawned shard worker runs), asking for CUDA where there is
+none raises instead of falling back to the CPU, and a kernel that
+cannot be built raises.
 """
 
 import ast
@@ -69,10 +69,31 @@ def test_cuda_device_without_cuda_raises():
         EngineConfig()  # the default device is the card
 
 
-@pytest.mark.parametrize("option,value", (("procs", 2),))
-def test_deferred_options_raise(option, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(device="cpu", **{option: value})
+# ------------------------------------------- what a shard worker imports
+WORKER_MODULES = ("repro_torch.engine.procpool", "repro_torch.engine",
+                  "repro_torch.device", "repro_torch.lsm",
+                  "repro_torch.lsm.scheduler", "repro_torch.durable.wal",
+                  "repro_torch.durable.manifest",
+                  "repro_torch.durable.recovery", "repro_torch.obs.tracer",
+                  "repro_torch.kernels.native")
+
+
+def test_worker_modules_load_neither_jax_nor_repro():
+    """The procpool module and everything its spawned worker imports
+    (``_WorkerHost`` imports the tree, scheduler, WAL, manifest, replay
+    and tracer lazily) stand alone."""
+    code = ("import importlib, sys\n"
+            f"for m in {WORKER_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "repro_torch.engine.procpool" in MODULES
 
 
 def test_kernel_wrapper_refuses_cpu_operands_and_missing_nvcc(monkeypatch):
