@@ -133,6 +133,29 @@ result.  Phases, each of which fails the run on any error:
    then one prefill's time by kernel family, and ``ServeLoop`` over 4 sessions
    registered in a ``SessionRegistry`` on ``cuda`` for 16 steps: decode
    ms a step and tokens/s.
+5b. The MoE serve cell: mixtral-8x7b at full width (d_model 4096, 32
+   heads over 8 KV heads of 128, 8 experts top-2 of d_ff 14336, window
+   4096).  In f32 at 2 layers, a prefill of 2 x 128 tokens on the card
+   (2 ``flash_attention`` launches, nothing else) must equal the port's
+   CPU path on the same weights (the model moved with ``.to``) within
+   1e-3 of each tensor's largest magnitude, both sides dropping the same
+   (token, expert) pairs, counted by a wrapper of the name ``moe_ffn``
+   that recomputes top-k, ranks and capacity from its inputs.  Then in
+   bf16 at the depth the card holds (24 of 32 layers unless its free
+   memory less 8 GB forces fewer; 70.2 GB of weights), phase 5's
+   traffic: three timed prefills of 4 x 2048 tokens, each launching
+   ``flash_attention_sm90`` once a layer and nothing else, the time by
+   kernel family, one MoE layer's time by step (routing, dispatch,
+   expert products, combine), and ``ServeLoop`` over 4 sessions for 16
+   steps.
+5c. On the host: fig9's balanced mix with 5% range deletes
+   (``benchmarks/fig9_throughput.py``: 150,000 preloaded keys in
+   batches of 8192, 20,000 ops over 2^21 keys) through the port's
+   ``make_tree`` / ``run_workload`` for all five strategies, each
+   printing ops/s and I/O per op, all answering one seeded lookup batch
+   alike; then a ``VersionedSampleStore`` of 8 versions of 100,000
+   samples, two purged, held to a plain model by lookups and
+   ``scan_version``.
 6. The four model kernels against their plain versions at the bf16
    prefill's shapes (SSD: 4 x 112 heads, chunks of 128, p = n = 64;
    flash: 4 x 2048, 32 heads of 112): the tensor-core kernels through
@@ -148,7 +171,10 @@ result.  Phases, each of which fails the run on any error:
    SSD kernel with the diagonal u == t left out of its mask.  Then all
    four kernels over a sweep of other shapes in f32 and bf16 (flash in
    f32 within 1e-4), each case logging the kernel that its dtype and
-   shape choose.
+   shape choose.  ``flash_attention_sm90`` also at phase 5b's shape (4 x
+   2048, 32 query heads over 8 KV heads of 128, causal, window 4096),
+   beside SDPA with ``enable_gqa``, rejecting the scale of D = 64 there;
+   both tensor-core kernels beside an empty kernel on their grid.
 
 The line before the last is the kernels' JSON record, the one before
 it the card's name and power limit; the last line is
@@ -2310,6 +2336,8 @@ def kernel_family(name: str) -> str:
         return "matmul"
     if "memcpy" in k or "memset" in k:
         return "copy"
+    if any(w in k for w in ("index", "sort", "topk", "scatter", "gather")):
+        return "index/sort"  # MoE routing, dispatch, combine; embeddings
     if "elementwise" in k or "vectorized" in k:
         return "elementwise"
     if "reduce" in k:
@@ -2332,7 +2360,7 @@ def model_phase(seed: int, card: str) -> dict:
     n_params = count_params(param_specs(cfg))
     rng = np.random.default_rng(seed)
 
-    # 5a. f32: the prefill (through the kernels) against a teacher-forced
+    # f32: the prefill (through the kernels) against a teacher-forced
     # decode loop over the same tokens (no kernel on that path).
     cfg32 = replace(cfg, dtype="float32")
     t0 = time.perf_counter()
@@ -2368,7 +2396,7 @@ def model_phase(seed: int, card: str) -> dict:
     del model, logits, cache, dl, dcache
     free()
 
-    # 5b. bf16, the config's type: a timed prefill, then the serve loop
+    # bf16, the config's type: a timed prefill, then the serve loop
     # over four sessions registered in the GLORAN registry on the card.
     t0 = time.perf_counter()
     model = Transformer(cfg, device="cuda", seed=seed)
@@ -2443,6 +2471,362 @@ def model_phase(seed: int, card: str) -> dict:
     del model, cache
     free()
     return {k: got[k] + launches[k] for k in got}
+
+
+# ------------------------------------------------------- MoE serve cell
+MOE_ARCH = "mixtral-8x7b"
+MOE_LAYERS = 24  # of 32: 70.2 GB of bf16 weights (all 32: 93.4 GB)
+MOE_CHECK = (2, 2, 128)  # f32 layers, batch, tokens: card against CPU
+MOE_RESERVE = 8e9  # bytes left free for the bf16 prefill's activations
+
+
+def moe_drops(x, router_w, top_k: int, capacity_factor: float) -> list:
+    """The (token, expert) pairs ``moe_ffn`` drops for these inputs,
+    recomputed in plain torch from the JAX package's steps
+    (``src/repro/models/moe.py:34-53``): top-k of the f32 router logits,
+    a stable sort by expert, each pair's rank within its expert, and the
+    capacity expression."""
+    t, e = x.shape[0] * x.shape[1], router_w.shape[-1]
+    logits = x.reshape(t, -1).float() @ router_w.float()
+    flat_e = torch.topk(logits, top_k, dim=-1).indices.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.bincount(flat_e, minlength=e)
+    offsets = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(t * top_k, device=x.device) - offsets[flat_e[order]]
+    cap = int(max(8, -(-(t * top_k) // e * capacity_factor)))
+    cap = -(-cap // 8) * 8
+    drop = rank >= cap
+    return sorted(zip((order[drop] // top_k).tolist(),
+                      flat_e[order][drop].tolist()))
+
+
+@contextlib.contextmanager
+def wrap_moe_ffn(on_call):
+    """Wrap the name ``moe_ffn`` that ``repro_torch.models.model`` calls:
+    ``on_call(x, router_w, *weights, top_k=, capacity_factor=, shared=)``
+    sees each call's inputs before the real function runs."""
+    from repro_torch.models import model as model_mod
+    real = model_mod.moe_ffn
+
+    def wrapped(*args, **kw):
+        on_call(*args, **kw)
+        return real(*args, **kw)
+
+    model_mod.moe_ffn = wrapped
+    try:
+        yield
+    finally:
+        model_mod.moe_ffn = real
+
+
+def prefill_dropping(model, toks) -> tuple:
+    """(logits, cache, the pairs each layer's capacity dropped)."""
+    drops = []
+    with wrap_moe_ffn(lambda x, r, *w, top_k, capacity_factor, **kw:
+                      drops.append(moe_drops(x, r, top_k, capacity_factor))):
+        logits, cache = model.prefill(toks)
+    return logits, cache, drops
+
+
+def moe_check(cfg, seed: int, rng, card: str) -> dict:
+    """Phase 5b's f32 check at full width: the card's prefill held to the
+    port's CPU path on the same weights (the model moved with ``.to``),
+    with the same pairs dropped.  A prefill against a teacher-forced
+    decode does not hold for MoE: the capacity depends on the token
+    count, so the two may drop different pairs."""
+    from dataclasses import replace
+    from repro_torch.kernels import native
+    from repro_torch.models import Transformer
+    from repro_torch.models.moe import capacity
+
+    n_layers, b, s = MOE_CHECK
+    model = Transformer(replace(cfg, n_layers=n_layers, dtype="float32"),
+                        device="cuda", seed=seed)
+    log(f"{MOE_ARCH} f32 check model: {n_layers} layers at full width, "
+        f"{torch.cuda.memory_allocated()} B allocated {card}")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)))
+    native.reset_launches()
+    logits, cache, card_drops = prefill_dropping(model, toks.cuda())
+    torch.cuda.synchronize()
+    got = {k: native.LAUNCHES[k] for k in
+           ("flash_attention", "flash_attention_sm90", "ssd", "ssd_sm90")}
+    want = {"flash_attention": n_layers, "flash_attention_sm90": 0,
+            "ssd": 0, "ssd_sm90": 0}
+    assert got == want, (got, want)
+    on_card = {"logits": logits.cpu(), **{k: v.cpu() for k, v in
+                                          cache.items()}}
+    del logits, cache
+    before = dict(native.LAUNCHES)
+    t0 = time.perf_counter()
+    model.to("cpu")
+    free()
+    assert model.device.type == "cpu"
+    logits, cache, cpu_drops = prefill_dropping(model, toks)
+    cpu_s = time.perf_counter() - t0
+    assert dict(native.LAUNCHES) == before, "the CPU path launched a kernel"
+    on_cpu = {"logits": logits, **cache}
+    assert logits.shape == (b, 1, cfg.vocab) and all(
+        torch.isfinite(v).all() for v in on_card.values()), "non-finite"
+    errs = {k: rel_err(on_card[k], on_cpu[k]) for k in on_cpu}
+    n_card, n_cpu = [len(d) for d in card_drops], [len(d) for d in cpu_drops]
+    m = cfg.moe
+    log(f"f32 prefill {b} x {s}, {n_layers} layers: launched "
+        f"{json.dumps(got)}; card against the CPU path (moved and run in "
+        f"{cpu_s:.3f} s; max |diff| / max |.|): {json.dumps(errs)}; pairs "
+        f"dropped a layer: card {n_card}, CPU {n_cpu} (capacity "
+        f"{capacity(b * s, m.top_k, m.n_experts, m.capacity_factor)} an "
+        f"expert, {b * s * m.top_k} pairs over {m.n_experts} experts)")
+    assert n_card == n_cpu, f"dropped pairs differ: {n_card} / {n_cpu}"
+    assert card_drops == cpu_drops, "the card and the CPU drop other pairs"
+    bad = {k: e for k, e in errs.items() if not e <= F32_TOL}
+    assert not bad, f"card vs CPU beyond {F32_TOL}: {bad}"
+    del model, logits, cache
+    free()
+    return got
+
+
+def moe_depth(cfg, card: str) -> int:
+    """``MOE_LAYERS``, or fewer if the card's free memory (less
+    ``MOE_RESERVE``) cannot hold them in bf16."""
+    from dataclasses import replace
+    from repro_torch.models import count_params, param_specs
+    fixed = count_params(param_specs(replace(cfg, n_layers=0)))
+    per_layer = count_params(param_specs(replace(cfg, n_layers=1))) - fixed
+    free_b, total_b = torch.cuda.mem_get_info()
+    fit = int((free_b - MOE_RESERVE - 2 * fixed) // (2 * per_layer))
+    log(f"{MOE_ARCH}: {free_b} B of {total_b} free before the build, "
+        f"{torch.cuda.memory_allocated()} B allocated; a layer "
+        f"{per_layer} parameters ({2 * per_layer} B in bf16), embed and "
+        f"head {fixed}; {fit} layers fit beside {MOE_RESERVE:.0f} B "
+        f"{card}")
+    assert fit >= 1, "not one layer fits"
+    return min(MOE_LAYERS, fit)
+
+
+def moe_split(inputs: tuple, card: str) -> str:
+    """Device time of one MoE layer of the bf16 prefill by step, on the
+    inputs it was given: routing (router product, top-k, stable sort,
+    ranks), the dispatch scatter, the expert products (three batched
+    matmuls and the SiLU), and the combine (gather and scatter-add)."""
+    from repro_torch.models import moe
+    x, router, wg, wu, wd, top_k, cf = inputs
+    t, d = x.shape[0] * x.shape[1], x.shape[-1]
+    e = router.shape[-1]
+    xf = x.reshape(t, d)
+    cap = moe.capacity(t, top_k, e, cf)
+    _, gates, top_idx = moe.route(xf, router, top_k)
+    order, e_sorted, rank = moe.dispatch_order(top_idx, e)
+    tok = order // top_k
+    g_sorted = gates.reshape(-1)[order]
+    buf, keep, slot = moe.dispatch(xf, e_sorted, tok, rank, cap, e)
+    out_buf = moe.experts(buf, wg, wu, wd)
+    ms = {"routing": time_kernel_ms(lambda: moe.dispatch_order(
+              moe.route(xf, router, top_k)[2], e), 10),
+          "dispatch": time_kernel_ms(
+              lambda: moe.dispatch(xf, e_sorted, tok, rank, cap, e), 10),
+          "experts": time_kernel_ms(
+              lambda: moe.experts(buf, wg, wu, wd), 10),
+          "combine": time_kernel_ms(lambda: moe.combine(
+              out_buf, e_sorted, slot, keep, tok, g_sorted, t), 10)}
+    flops = 3 * 2 * e * cap * d * wg.shape[-1]
+    return (f"one MoE layer (t = {t}, capacity {cap} of {e} experts, "
+            f"{int((~keep).sum())} pairs dropped): "
+            + ", ".join(f"{k} {v:.6f} ms" for k, v in ms.items())
+            + f"; the expert products' {flops} FLOP bound "
+            f"{flops / BF16_TENSOR_FLOPS * 1e3:.6f} ms {card}")
+
+
+def moe_phase(seed: int, card: str) -> dict:
+    """Phase 5b: mixtral-8x7b at full width through the port's serving
+    entry points, depth cut to what the card holds.  Returns the
+    launches of the f32 check's prefill and of one bf16 prefill."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import native
+    from repro_torch.models import Transformer, count_params, param_specs
+    from repro_torch.runtime import ServeLoop, SessionRegistry
+
+    cfg = get_config(MOE_ARCH)
+    rng = np.random.default_rng(seed)
+    free()
+    check = moe_check(cfg, seed, rng, card)
+
+    n_layers = moe_depth(cfg, card)
+    cfg = replace(cfg, n_layers=n_layers)
+    n_params = count_params(param_specs(cfg))
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    log(f"{MOE_ARCH} bf16: {n_layers} of 32 layers, d_model {cfg.d_model}, "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+        f"{cfg.moe.d_expert}, {n_params} parameters built in "
+        f"{time.perf_counter() - t0:.3f} s; {torch.cuda.memory_allocated()} "
+        f"B allocated {card}")
+    b, s = SERVE_PREFILL
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
+                           device="cuda")
+    want = {"flash_attention_sm90": n_layers, "flash_attention": 0,
+            "ssd": 0, "ssd_sm90": 0}
+    model.prefill(toks)  # warm-up: grows the allocator's cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(PREFILL_RUNS):
+        native.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(toks)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = {k: native.LAUNCHES[k] for k in want}
+        assert launches == want, (launches, want)
+        assert logits.shape == (b, 1, cfg.vocab)
+        assert torch.isfinite(logits).all() and all(
+            torch.isfinite(v).all() for v in cache.values()), "non-finite"
+        kv = (n_layers, b, s, cfg.n_kv_heads, cfg.head_dim_)
+        assert cache["k"].shape == kv, cache["k"].shape
+        del logits, cache
+    prefill_s = statistics.median(walls)
+    log(f"bf16 prefill {b} x {s} tokens: {PREFILL_RUNS} runs of "
+        f"{', '.join(f'{w:.6f}' for w in walls)} s, median "
+        f"{prefill_s:.6f} s = {b * s / prefill_s:.1f} tokens/s; each "
+        f"launched {json.dumps(launches)}; peak memory "
+        f"{torch.cuda.max_memory_allocated()} B {card}")
+    free()
+    log("bf16 prefill time by kernel family: " + time_breakdown(
+        lambda: model.prefill(toks), card))
+    layer_in = []
+    with wrap_moe_ffn(lambda x, r, wg, wu, wd, *, top_k, capacity_factor,
+                      **kw: layer_in or layer_in.append(
+                          (x, r, wg, wu, wd, top_k,
+                           capacity_factor))):
+        model.prefill(toks)
+    log("bf16 prefill, " + moe_split(layer_in[0], card))
+    del layer_in
+    free()
+
+    reg = SessionRegistry(strategy="gloran", device="cuda")
+    sessions = np.arange(b, dtype=np.uint64) + 1000
+    for sid in sessions:
+        reg.register(int(sid), np.arange(8), np.arange(8) + sid)
+    loop = ServeLoop(model, batch=b, max_len=SERVE_PROMPT + SERVE_STEPS,
+                     registry=reg)
+    prompts = rng.integers(0, cfg.vocab, (b, SERVE_PROMPT)).astype(np.int32)
+    native.reset_launches()
+    out = loop.run(prompts, steps=SERVE_STEPS, session_ids=sessions)
+    serve_launches = dict(native.LAUNCHES)
+    st = loop.stats
+    assert out.shape == (b, SERVE_STEPS) and (out >= 0).all() \
+        and (out < cfg.vocab).all(), out
+    assert st.registry_lookups == b * SERVE_STEPS, st
+    found, vals = reg.lookup(sessions, np.zeros(b, np.uint64))
+    assert found.all() and (vals == sessions).all(), (found, vals)
+    steps = SERVE_PROMPT + SERVE_STEPS
+    log(f"ServeLoop ({MOE_ARCH}, {n_layers} layers): {b} sessions, "
+        f"{SERVE_PROMPT}-token prompts fed by decode, {SERVE_STEPS} steps "
+        f"in {st.wall_seconds:.6f} s = {1e3 * st.wall_seconds / steps:.3f} "
+        f"ms a decode step, {st.tokens_generated / st.wall_seconds:.3f} "
+        f"generated tokens/s; registry lookups {st.registry_lookups}, io "
+        f"reads {st.registry_io_reads}, stall "
+        f"{st.registry_stall_seconds:.6f} s; launches "
+        f"{json.dumps(serve_launches)} {card}")
+    cache = model.init_cache(b, 64)
+    tok = torch.as_tensor(prompts[:, :1], device="cuda")
+    with torch.inference_mode():
+        log("bf16 decode step time by kernel family: " + time_breakdown(
+            lambda: model.decode_step(tok, cache, 0), card))
+    reg.engine.close()
+    del model, cache
+    free()
+    return {k: check[k] + launches[k] for k in want}
+
+
+# ------------------------------------------ workload harness (host only)
+FIG9_BALANCED = dict(  # benchmarks/fig9_throughput.py: balanced, rd 5%
+    lookup=0.5, update=0.45, range_delete=0.05, range_delete_len=128,
+    universe=1 << 21)
+FIG9_PRELOAD, FIG9_OPS, FIG9_SEED = 150_000, 20_000, 5
+STRATEGIES = ("decomp", "lookup_delete", "scan_delete", "lrr", "gloran")
+VERSIONS, SAMPLES, PURGED = 8, 100_000, (2, 5)
+
+
+def workload_phase(seed: int) -> None:
+    """Phase 5c, on the host: fig9's balanced mix through the port's
+    ``make_tree`` / ``run_workload`` for every strategy (the same op
+    stream, so one lookup batch afterwards must answer alike), then a
+    ``VersionedSampleStore`` held to a plain model."""
+    from repro_torch.baselines import WorkloadMix, make_tree, run_workload
+    from repro_torch.data import VersionedSampleStore
+
+    u = FIG9_BALANCED["universe"]
+    probe = np.random.default_rng(seed).integers(0, u, LOOKUP_BATCH) \
+        .astype(np.uint64)
+    answers = {}
+    for strat in STRATEGIES:
+        tree = make_tree(strat, buffer_capacity=4096, size_ratio=10,
+                         universe=u)
+        pre = np.random.default_rng(0)  # benchmarks/harness.py's preload
+        t0 = time.perf_counter()
+        n_pre = 0
+        for _ in range(0, FIG9_PRELOAD, PUT_BATCH):
+            keys = pre.integers(0, u, size=PUT_BATCH).astype(np.uint64)
+            tree.put_batch(keys, keys * np.uint64(31) + np.uint64(7))
+            n_pre += PUT_BATCH
+        pre_s = time.perf_counter() - t0
+        res = run_workload(tree, FIG9_OPS, WorkloadMix(**FIG9_BALANCED),
+                           seed=FIG9_SEED)
+        answers[strat] = tree.get_batch(probe)
+        log(f"fig9 balanced rd5 {strat} (host, not device): {n_pre} "
+            f"preloaded in {pre_s:.3f} s; {res.n_ops} ops in "
+            f"{res.wall_seconds:.6f} s = {res.ops_per_sec:.1f} ops/s "
+            f"(modeled at 20 us an I/O {res.modeled_ops_per_sec():.1f}); "
+            f"I/O per op: lookup {res.io_per_op('lookup'):.6f}, range "
+            f"delete {res.io_per_op('range_delete'):.6f}, update "
+            f"{res.io_per_op('update'):.6f}; reads {res.io_reads}, writes "
+            f"{res.io_writes}; ops {json.dumps(res.counts_by_type)}")
+    found, vals = answers["gloran"]
+    for strat, (f, v) in answers.items():
+        assert np.array_equal(f, found), f"{strat}: other keys found"
+        assert np.array_equal(v[f], vals[found]), f"{strat}: other values"
+    log(f"all {len(STRATEGIES)} strategies answer a lookup batch of "
+        f"{len(probe)} alike ({int(found.sum())} found)")
+
+    rng = np.random.default_rng(seed)
+    store = VersionedSampleStore(strategy="gloran")
+    model = {}
+    t0 = time.perf_counter()
+    for v in range(VERSIONS):
+        ids = rng.permutation(SAMPLES).astype(np.uint64)
+        pay = rng.integers(0, 1 << 62, SAMPLES).astype(np.uint64)
+        store.publish(v, ids, pay)
+        model[v] = pay[np.argsort(ids)]
+    publish_s = time.perf_counter() - t0
+    reads0 = store.tree.io.reads
+    t0 = time.perf_counter()
+    for v in PURGED:
+        store.purge_version(v)
+        del model[v]
+    purge_s = time.perf_counter() - t0
+    purge_reads = store.tree.io.reads - reads0
+    assert store.live_versions == set(model)
+    q = rng.integers(0, SAMPLES + SAMPLES // 8, LOOKUP_BATCH)
+    for v in range(VERSIONS):
+        f, vals = store.get_batch(v, q)
+        want = (q < SAMPLES) & (v in model)
+        assert np.array_equal(f, want), f"version {v}: found"
+        if v in model:
+            assert np.array_equal(vals[f], model[v][q[want]]), v
+        keys, vals = store.scan_version(v)
+        if v in model:
+            assert np.array_equal(keys, (np.uint64(v) << np.uint64(40))
+                                  | np.arange(SAMPLES, dtype=np.uint64))
+            assert np.array_equal(vals, model[v]), f"version {v}: scan"
+        else:
+            assert len(keys) == 0, f"purged version {v} scans {len(keys)}"
+    log(f"VersionedSampleStore (host, not device): {VERSIONS} versions of "
+        f"{SAMPLES} samples published in {publish_s:.3f} s; purging "
+        f"versions {PURGED} took {purge_s:.6f} s and {purge_reads} block "
+        f"reads; lookups and "
+        f"scan_version equal the plain model")
 
 
 # Kernel against plain version.  SSD: f32 sums in another order, within
@@ -2524,6 +2908,10 @@ def model_kernel_checks(launches: dict, seed: int, card: str) -> list:
         lambda: ssd_chunks_ref(x, dac, dt, Bm, Cm, chunk=q), ssd_bytes,
         card, ops=ssd_ops_n, tol=tol)
     sm90["simt_ms"] = simt["ms"]
+    sm90["floor_ms"] = time_kernel_ms(
+        lambda: ssd_ops._launch_floor(b, s, h, p, n, q, "cuda"))
+    log(f"ssd_sm90's empty kernel on its grid (the launch floor, a "
+        f"reading) {sm90['floor_ms']:.6f} ms {card}")
     records = [simt, sm90]
     # A plausible wrong kernel that SSD_TOL must reject: the diagonal
     # u == t left out of the causal mask.
@@ -2558,6 +2946,10 @@ def model_kernel_checks(launches: dict, seed: int, card: str) -> list:
         ops=flash_ops_n, tol=atol, rtol=rtol,
         library=lambda: sdpa(qt, kt, vt, is_causal=True))
     sm90["simt_ms"] = simt["ms"]
+    sm90["floor_ms"] = time_kernel_ms(
+        lambda: flash_ops._launch_floor(b, s, hq, d, "cuda"))
+    log(f"flash_attention_sm90's empty kernel on its grid (the launch "
+        f"floor, a reading) {sm90['floor_ms']:.6f} ms {card}")
     records += [simt, sm90]
     want = attention_ref(qq, kk, vv, causal=True)
     # SDPA's reading (not a check): how much of the tolerance a library
@@ -2582,8 +2974,67 @@ def model_kernel_checks(launches: dict, seed: int, card: str) -> list:
         f"{100 * outside:.3f}% of elements outside it: rejected")
     del qq, kk, vv, qt, kt, vt, want, wrong, lib
     free()
+    sm90["moe_shape"] = flash_moe_check(g, card)
     kernel_sweep(g)
     return records
+
+
+def flash_moe_check(g, card: str) -> dict:
+    """``flash_attention_sm90`` at phase 5b's bf16 prefill shape
+    (mixtral-8x7b: 4 x 2048, 32 query heads over 8 KV heads of 128,
+    causal, window 4096) against its plain version, beside SDPA and its
+    floor, and the planted fault (the scale of another D) rejected."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import native
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    cfg = get_config(MOE_ARCH)
+    b, s = SERVE_PREFILL
+    hq, hkv, d, w = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.window
+    bf = torch.bfloat16
+    qq = torch.randn(b, s, hq, d, device="cuda", generator=g).to(bf)
+    kk, vv = (torch.randn(b, s, hkv, d, device="cuda", generator=g).to(bf)
+              for _ in range(2))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qq, kk, vv))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = sum(min(i + 1, w) for i in range(s))  # causal, in the window
+    atol, rtol = FLASH_BF16_TOL
+    assert flash_ops.kernel_for(bf, d, hq, hkv) == "flash_attention_sm90"
+    rec = check_kernel(
+        "flash_attention_sm90", 0,
+        lambda: flash_attention(qq, kk, vv, causal=True, window=w),
+        lambda: attention_ref(qq, kk, vv, causal=True, window=w),
+        2 * 2 * (qq.numel() + kk.numel()), card,
+        ops=4 * d * b * hq * pairs, tol=atol, rtol=rtol,
+        library=lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    rec = {k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}
+    rec["floor_ms"] = time_kernel_ms(
+        lambda: flash_ops._launch_floor(b, s, hq, d, "cuda"))
+    rec["shape"] = [b, s, hq, hkv, d, w]
+    log(f"flash_attention_sm90 at {MOE_ARCH}'s shape {rec['shape']}: "
+        f"floor {rec['floor_ms']:.6f} ms, {rec['ms'] / rec['bound_ms']:.3f}"
+        f"x its bound, {rec['ms'] / rec['library_ms']:.3f}x SDPA {card}")
+    want = attention_ref(qq, kk, vv, causal=True, window=w)
+    # The planted fault: at D = 128 the padded D is D itself, so the
+    # wrong scale is that of one 64-column box.
+    wrong_d = 1 << (d - 1).bit_length()
+    wrong_d = wrong_d if wrong_d != d else 64
+    n0 = native.LAUNCHES["flash_attention_sm90"]
+    wrong = flash_attention(qq, kk, vv, causal=True, window=w,
+                            scale=wrong_d ** -0.5)
+    assert native.LAUNCHES["flash_attention_sm90"] == n0 + 1
+    used = allowance_used(wrong, want, atol, rtol)
+    assert used > 1, \
+        f"flash tolerance passes the scale of D = {wrong_d} ({used})"
+    log(f"flash_attention_sm90 at that shape with the scale of D = "
+        f"{wrong_d}: max abs err {max_abs_err(wrong, want)}, {used} of the "
+        f"tolerance used: rejected")
+    del qq, kk, vv, qt, kt, vt, want, wrong
+    free()
+    return rec
 
 
 def kernel_sweep(g) -> None:
@@ -2660,6 +3111,9 @@ def main(argv=None) -> int:
 
     records = store_phases(card)
     launches = model_phase(args.seed, card)
+    moe = moe_phase(args.seed, card)
+    launches = {k: v + moe.get(k, 0) for k, v in launches.items()}
+    workload_phase(args.seed)
     records += model_kernel_checks(launches, args.seed, card)
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -66,8 +66,10 @@ def load_jax_params(model, tree) -> None:
     """Fill a ``repro_torch.models.Transformer`` with the JAX package's
     param tree for the same config, given as numpy arrays: the stacked
     ``layers`` (L, ...), ``groups`` (G, per, ...) and ``tail`` (T, ...)
-    are unstacked into the port's per-layer modules, and every array is
-    cast to the model's type on its device."""
+    are unstacked into the port's per-layer modules (an MoE layer's
+    ``moe`` experts, (L, E, D, F) and the like, and its ``shared``
+    expert with them), and every array is cast to the model's type on
+    its device."""
     out = {k: tree[k] for k in ("embed", "final_norm", "lm_head",
                                 "shared_attn", "shared_mlp") if k in tree}
     if "layers" in tree:

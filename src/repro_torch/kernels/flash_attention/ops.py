@@ -103,6 +103,19 @@ def _launch_sm90(q, k, v, scale, causal, window):
     return o
 
 
+def _launch_floor(b: int, sq: int, hq: int, d: int, device) -> None:
+    """An empty kernel on ``flash_attention_sm90``'s grid, block and
+    shared memory for (b, sq, hq, d) queries: the launch floor beneath
+    its time (not a launch of the attention)."""
+    dev = torch.device(device)
+    fn = native.library("flash_attention_sm90") \
+        .flash_attention_sm90_floor_launch
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    native.check("flash_attention_sm90_floor",
+                 fn(b, sq, hq, d, native.stream(dev)))
+
+
 def _launch_simt(q, k, v, scale, causal, window):
     """The CUDA-core kernel, f32 or bf16, any D up to 256."""
     dev = _check(q, k, v)

@@ -116,6 +116,19 @@ def _launch_sm90(x, dac, dt, B, C, chunk, *, planted_fault: bool = False):
     return y, states
 
 
+def _launch_floor(batch: int, s: int, h: int, p: int, n: int, chunk: int,
+                  device) -> None:
+    """An empty kernel on ``ssd_sm90``'s grid, block and shared memory
+    for these shapes: the launch floor beneath its time (not a launch of
+    the scan)."""
+    dev = torch.device(device)
+    fn = native.library("ssd_sm90").ssd_sm90_floor_launch
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    native.check("ssd_sm90_floor",
+                 fn(batch, s, h, p, n, chunk, native.stream(dev)))
+
+
 def _launch_simt(x, dac, dt, B, C, chunk):
     """The CUDA-core kernel, f32 or bf16, any p, n and chunk."""
     dev = _check(x, dac, dt, B, C, chunk)

@@ -3,9 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --smoke
 
 Runs on the card unless ``--device cpu`` is given; asking for ``cuda``
-where there is none raises before anything is built.
+where there is none raises before anything is built.  The MoE archs'
+full configs do not fit one 80 GB card (mixtral-8x7b holds 46.7 B
+parameters, 93.4 GB in bf16; kimi-k2 about 1 T), so ``--smoke`` is
+their path on a card as on the CPU.
 """
 
 from __future__ import annotations
@@ -21,9 +26,14 @@ from ..runtime import ServeLoop, SessionRegistry
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(
+        description="Batched decode behind a session registry.",
+        epilog="mixtral-8x7b and kimi-k2-1t-a32b outgrow one 80 GB card "
+               "at full size: serve them with --smoke, on a card or with "
+               "--device cpu.")
     ap.add_argument("--arch", required=True, choices=list(ARCHS))
-    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced same-family config")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=4)

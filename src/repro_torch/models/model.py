@@ -1,11 +1,13 @@
-"""Model assembly: dense / SSM / hybrid decoder stacks as torch modules.
+"""Model assembly: dense / MoE / SSM / hybrid decoder stacks as torch
+modules.
 
 The JAX package scans over stacked layer parameters; here every layer
 has its own modules (``nn.ModuleList``s), and the heterogeneous stacks
 are Python loops: gemma3's 5:1 local:global pattern is a per-layer
 window int, zamba2's shared attention+MLP block runs after each group
 of Mamba2 layers.  ``vlm`` and ``audio`` are dense stacks behind a stub
-frontend that takes embeddings.  MoE stacks are not ported yet.
+frontend that takes embeddings; an MoE stack is a dense one whose MLP
+is ``moe_ffn`` (mixtral, kimi-k2).
 
 Parameters live in ``Transformer.params``, a tree of modules indexed
 like the JAX package's param dicts (``params["groups"][g][j]["w_in"]``),
@@ -28,12 +30,12 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .attention import attention_block
 from .layers import rmsnorm, swiglu
+from .moe import moe_ffn
 from .params import ParamSpec, init_params
 from .ssm import mamba2_block
 
 P = ParamSpec
-_MOE = "queue A: the rest of the model stack (models/moe.py)"
-_DENSE = ("dense", "vlm", "audio")
+_DENSE = ("dense", "moe", "vlm", "audio")
 
 
 def _module(value):
@@ -87,6 +89,27 @@ def _mlp_specs(c: ModelConfig) -> dict:
     }
 
 
+def _moe_specs(c: ModelConfig) -> dict:
+    m = c.moe
+    out = {
+        "ln": P((c.d_model,), ("embed",), "ones"),
+        "router": P((c.d_model, m.n_experts), ("embed", None)),
+        "w_gate": P((m.n_experts, c.d_model, m.d_expert),
+                    ("experts", "embed_fsdp", "expert_out")),
+        "w_up": P((m.n_experts, c.d_model, m.d_expert),
+                  ("experts", "embed_fsdp", "expert_out")),
+        "w_down": P((m.n_experts, m.d_expert, c.d_model),
+                    ("experts", "expert_out", "embed_fsdp")),
+    }
+    if m.shared_expert:
+        out["shared"] = {
+            "w_gate": P((c.d_model, m.d_expert), ("embed_fsdp", "mlp")),
+            "w_up": P((c.d_model, m.d_expert), ("embed_fsdp", "mlp")),
+            "w_down": P((m.d_expert, c.d_model), ("mlp", "embed_fsdp")),
+        }
+    return out
+
+
 def _mamba_specs(c: ModelConfig) -> dict:
     di = c.ssm.expand * c.d_model
     n = c.ssm.d_state
@@ -123,7 +146,10 @@ def param_specs(c: ModelConfig) -> dict:
         specs["embed"] = P((c.vocab, c.d_model), ("vocab", "embed"),
                            "normal", 1.0)
     if c.family in _DENSE:
-        specs["layers"] = [{"attn": _attn_specs(c), "mlp": _mlp_specs(c)}
+        # An MoE layer's routed experts take the dense MLP's place.
+        ffn, specs_of = (("moe", _moe_specs) if c.moe is not None
+                         else ("mlp", _mlp_specs))
+        specs["layers"] = [{"attn": _attn_specs(c), ffn: specs_of(c)}
                            for _ in range(c.n_layers)]
     elif c.family == "ssm":
         specs["layers"] = [{"mamba": _mamba_specs(c)}
@@ -143,23 +169,25 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device: str = "cuda",
                  seed: int = 0):
         super().__init__()
-        if cfg.moe is not None or cfg.family == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE stacks are not ported to repro_torch "
-                f"yet: ROADMAP {_MOE}")
         if cfg.family not in _DENSE + ("ssm", "hybrid"):
             raise ValueError(cfg.family)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         # Static window for banded local attention (prefill): uniform-SWA
         # archs use cfg.window; local:global stacks the local window
         # (global layers take the full path).
         self._static_window = (cfg.local_window if cfg.local_global
                                else cfg.window)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = torch.Generator(device=device).manual_seed(seed)
         self.params = ParamTree(init_params(param_specs(cfg), gen,
-                                            self.dtype, self.device))
+                                            self.dtype, device))
+
+    @property
+    def device(self) -> torch.device:
+        """Where the parameters lie: ``model.to("cpu")`` moves the model
+        and every tensor its entry points make."""
+        return self.params["final_norm"].device
 
     @torch.no_grad()
     def load_params(self, tree) -> None:
@@ -211,7 +239,16 @@ class Transformer(nn.Module):
                      cache_pos=None, ring=False):
         h, new_kv = self._attention(x, lp["attn"], window, positions, cache,
                                     cache_pos, ring, self._static_window)
-        return self._mlp(x + h, lp["mlp"]), new_kv
+        x = x + h
+        if self.cfg.moe is None:
+            return self._mlp(x, lp["mlp"]), new_kv
+        mp, m = lp["moe"], self.cfg.moe
+        return x + moe_ffn(rmsnorm(x, mp["ln"], self.cfg.norm_eps),
+                           mp["router"], mp["w_gate"], mp["w_up"],
+                           mp["w_down"], top_k=m.top_k,
+                           capacity_factor=m.capacity_factor,
+                           shared=mp["shared"] if "shared" in mp
+                           else None), new_kv
 
     def _block_mamba(self, x, lp, state=None, return_state=False):
         y, new_state = mamba2_block(rmsnorm(x, lp["ln"], self.cfg.norm_eps),

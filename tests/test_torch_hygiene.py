@@ -112,9 +112,12 @@ def test_kernel_wrapper_refuses_cpu_operands_and_missing_nvcc(monkeypatch):
 
 # ------------------------------------------------ the model stack's slice
 SLICE_MODULES = ("repro_torch.configs", "repro_torch.models",
+                 "repro_torch.models.moe",
                  "repro_torch.kernels.ssd", "repro_torch.kernels.flash_attention",
                  "repro_torch.runtime", "repro_torch.launch.serve",
-                 "repro_torch.carry")
+                 "repro_torch.carry", "repro_torch.baselines",
+                 "repro_torch.baselines.workload", "repro_torch.data",
+                 "repro_torch.data.versioned_store")
 
 
 def test_model_stack_modules_load_neither_jax_nor_repro():
@@ -207,8 +210,17 @@ def test_model_and_cli_want_the_card():
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "kimi-k2-1t-a32b"])
-def test_moe_configs_raise_naming_roadmap(arch):
+def test_moe_model_and_cli_want_the_card(arch):
+    """The MoE stacks build on the CPU only when asked; the default is
+    the card, and neither the model nor the CLI falls back without one."""
     from repro_torch.configs import get_config, smoke
+    from repro_torch.launch import serve
     from repro_torch.models import Transformer
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(smoke(get_config(arch)), device="cpu")
+    cfg = smoke(get_config(arch))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Transformer(cfg)
+    assert "moe" in Transformer(cfg, device="cpu").params["layers"][0]
+    # The full config (46.7 B / 1 T parameters) is never built: the
+    # device check comes first.
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", arch])

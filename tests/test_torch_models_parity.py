@@ -3,8 +3,9 @@ the same (carried) parameters, on the CPU, in f32.
 
 For the smoke configs of zamba2-7b (hybrid, the slice's model),
 mamba2-130m (SSM), gemma3-1b (local:global; at 32 tokens its local
-layers take the banded path) and chatglm3-6b (``rope_fraction`` 0.5),
-plus a six-layer gemma3 whose last layer is global: ``prefill``'s
+layers take the banded path), chatglm3-6b (``rope_fraction`` 0.5),
+mixtral-8x7b and kimi-k2 (MoE; kimi-k2 with its shared expert), plus a
+six-layer gemma3 whose last layer is global: ``prefill``'s
 logits and every cache entry, then three ``decode_step``s continuing
 from that cache, equal the JAX package's within atol/rtol 1e-4 (the
 sums run in other orders; logits are O(1)).  On the CPU the prefill's
@@ -40,6 +41,9 @@ CASES = [  # (arch, prompt length, layers or None for the smoke depth)
     ("gemma3-1b", 32, 6),  # five local layers, then a global one
     ("chatglm3-6b", 20, None),
     ("musicgen-large", 12, None),  # dense behind a stub frontend
+    ("mixtral-8x7b", 32, None),  # MoE top-2 behind windowed attention
+    ("mixtral-8x7b", 20, None),
+    ("kimi-k2-1t-a32b", 20, None),  # MoE with a shared expert
 ]
 
 
@@ -133,6 +137,14 @@ def test_prefill_equals_teacher_forced_decode(arch):
 
 def test_forward_matches_jax():
     cfg, jm, params, model = build("zamba2-7b", None)
+    a = inputs(cfg, np.random.default_rng(9), 40)
+    want = jax.jit(jm.forward_train)(params, **kw(cfg, a, False))
+    close(model.forward_train(**kw(cfg, a, True)), want, "forward logits")
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "kimi-k2-1t-a32b"])
+def test_moe_forward_matches_jax(arch):
+    cfg, jm, params, model = build(arch, None)
     a = inputs(cfg, np.random.default_rng(9), 40)
     want = jax.jit(jm.forward_train)(params, **kw(cfg, a, False))
     close(model.forward_train(**kw(cfg, a, True)), want, "forward logits")
