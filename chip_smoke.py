@@ -175,6 +175,31 @@ result.  Phases, each of which fails the run on any error:
    2048, 32 query heads over 8 KV heads of 128, causal, window 4096),
    beside SDPA with ``enable_gqa``, rejecting the scale of D = 64 there;
    both tensor-core kernels beside an empty kernel on their grid.
+7. Training.  7a: at phase 6's shapes, the gradient of ``(out *
+   w).sum()`` through each of the four model kernels' autograd
+   Functions (the kernel forward, the plain version's VJP) equals the
+   gradient through the plain version, each input's within the kernel's
+   forward tolerance times that gradient's largest magnitude; a wrapper
+   that returns the kernel's output detached must fail that.  7b:
+   zamba2-7b's first group at full width (6 Mamba2 layers and the
+   shared block) in f32, one AdamW ``make_train_step`` on 2 x 128
+   ``TokenPipeline`` tokens: the card equals the CPU path on the same
+   weights within 1e-3 of each tensor's largest magnitude (loss, grad
+   norm, every updated parameter and first moment), launching ``ssd``
+   and ``flash_attention`` twice a layer (remat).  7c: zamba2-7b in
+   bf16 at full width and as many of its 13 groups as fit beside the
+   larger of an 8 GB reserve and a one-group probe's need (16 B a
+   parameter; no tail): 1 warm-up and 4 timed AdamW steps of
+   ``train_4k``'s 4096-token sequences, 2 a step in 2 microbatches,
+   with the step's median, tokens/s, 6 N tokens / 989 TFLOP/s as a share
+   of the step, the peak memory and ``ssd_sm90`` / ``flash_attention_sm90``
+   launches (2 x microbatches x the layers that run them); losses and
+   grad norms finite, every matrix changed.  7d: ``run_training`` at
+   zamba2-7b's smoke config on the card, 20 steps with a checkpoint
+   every 5 and a falling loss; a run that crashes at step 7 and a new
+   one that resumes from 5 within 1e-5 of the uninterrupted losses; the
+   checkpoint's bytes and a blocking save's seconds; the last checkpoint
+   restored on the CPU path bit-identical to the card's parameters.
 
 The line before the last is the kernels' JSON record, the one before
 it the card's name and power limit; the last line is
@@ -3089,6 +3114,428 @@ def kernel_sweep(g) -> None:
     assert not fails, f"kernels differ from their plain versions: {fails}"
 
 
+# -------------------------------------------------------- training phase
+TRAIN_CHECK = (2, 128)  # 7b: f32, one group at full width, card vs CPU
+TRAIN_SEQ = 4096  # 7c: train_4k's sequence; its global batch 256 cut to 2
+TRAIN_BATCH, TRAIN_MICRO = 2, 2  # two microbatches of one sequence
+TRAIN_WARMUP, TRAIN_STEPS = 1, 4
+TRAIN_RESERVE = 8 << 30  # bytes left beside the weights, at the least
+TRAIN_MARGIN = 2 << 30  # beside a step's measured need, for fragmentation
+TRAIN_BYTES = 16  # a parameter: bf16 weight and gradient, f32 m, v, sum
+STEP_BYTES = 6  # of those, alive only in a step: the gradient and sum
+LOOP_STEPS, LOOP_EVERY, LOOP_CRASH = 20, 5, 7  # 7d at the smoke config
+LOOP_TOL = 1e-5  # resumed losses against the uninterrupted run's
+
+
+def grads_of(fn, inputs, weights) -> list:
+    """Gradients of ``sum(out * w)`` over ``fn``'s outputs with respect
+    to every input; zeros where no gradient reaches an input (an output
+    with no graph, as a wrapper that detaches gives)."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+    if not loss.requires_grad:
+        return [torch.zeros_like(t) for t in leaves]
+    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for g, t in zip(got, leaves)]
+
+
+def grad_used(got, want, rel: float) -> float:
+    """The largest share of its tolerance (``rel`` of the plain
+    gradient's largest magnitude) that any input's gradient uses."""
+    return max(float((g.float() - w.float()).abs().max())
+               / (rel * float(w.float().abs().max().clamp_min(1e-30)))
+               for g, w in zip(got, want))
+
+
+def grad_checks(records: list, seed: int, card: str) -> None:
+    """Phase 7a: the gradient of ``(out * w).sum()`` through each model
+    kernel's autograd Function (the kernel forward, the plain version's
+    VJP) equals the gradient through the plain version at phase 6's
+    shapes, each input's within the kernel's forward tolerance times
+    that gradient's largest magnitude; a wrapper that detaches the
+    kernel's output (the graph cut of the wrappers before) is rejected.
+    Each kernel's record gains the gradient's error and share used."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ssd_chunks, ssd_chunks_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    cfg = get_config(MODEL_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    bf = torch.bfloat16
+    b, s = SERVE_PREFILL
+    h = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+    p, n, q = cfg.ssm.head_dim, cfg.ssm.d_state, cfg.ssm.chunk
+    by_name = {r["name"]: r for r in records}
+
+    def check(name, fn, plain, detached, inputs, rel):
+        want = plain(*inputs)
+        want = want if isinstance(want, tuple) else (want,)
+        w = [torch.randn(o.shape, device="cuda", generator=g)
+             for o in want]
+        ref = grads_of(plain, inputs, w)
+        got = grads_of(fn, inputs, w)
+        used = grad_used(got, ref, rel)
+        err = max(float((a.float() - r.float()).abs().max())
+                  for a, r in zip(got, ref))
+        assert used <= 1, f"{name}: gradient off the plain one ({used})"
+        cut = grad_used(grads_of(detached, inputs, w), ref, rel)
+        assert cut > 1, f"{name}: a detached output passes ({cut})"
+        by_name[name].update(grad_max_abs_err=err, grad_tol_used=used)
+        log(f"{name} gradient (kernel forward, plain VJP) against the plain "
+            f"version's: max abs err {err}, {used} of {rel} x each "
+            f"gradient's max used; a detached output uses {cut}: "
+            f"rejected {card}")
+
+    ssd_in = ssd_inputs(b, s, h, p, n, q, bf, g)
+    plain = lambda *a: ssd_chunks_ref(*a, chunk=q)
+    check("ssd_sm90", lambda *a: ssd_chunks(*a, chunk=q), plain,
+          lambda *a: ssd_ops._launch(*(t.detach() for t in a), q),
+          ssd_in, SSD_TOL)
+    check("ssd", lambda *a: ssd_ops.SSDChunks.apply(
+        ssd_ops._launch_simt, q, *a), plain,
+        lambda *a: ssd_ops._launch_simt(*(t.detach() for t in a), q),
+        ssd_in, SSD_TOL)
+    del ssd_in
+    free()
+    hq, d = cfg.n_heads, cfg.head_dim_
+    qkv = [torch.randn(b, s, hq, d, device="cuda", generator=g).to(bf)
+           for _ in range(3)]
+    plain = lambda *a: attention_ref(*a, causal=True)
+    check("flash_attention_sm90",
+          lambda *a: flash_attention(*a, causal=True), plain,
+          lambda *a: flash_ops._launch(*(t.detach() for t in a), None,
+                                       True, None),
+          qkv, FLASH_BF16_TOL[1])
+    check("flash_attention", lambda *a: flash_ops.FlashAttention.apply(
+        flash_ops._launch_simt, None, True, None, *a), plain,
+        lambda *a: flash_ops._launch_simt(*(t.detach() for t in a), None,
+                                          True, None),
+        qkv, FLASH_BF16_TOL[1])
+    del qkv
+    free()
+
+
+def train_check(seed: int, card: str) -> dict:
+    """Phase 7b: one AdamW ``make_train_step`` of zamba2-7b's first group
+    at full width (6 Mamba2 layers and the shared block, no tail) in
+    f32 on the card equals the CPU path on the same weights and batch
+    within 1e-3 of each tensor's largest magnitude: loss, grad norm,
+    every updated parameter and every first moment (0.1 x the clipped
+    gradient).  Returns the card step's launches."""
+    import copy
+    from dataclasses import replace
+    from repro_torch.carry import param_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import native
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Transformer
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.optim.optimizer import _get
+
+    cfg = get_config(MODEL_ARCH)
+    cfg = replace(cfg, dtype="float32", n_layers=cfg.hybrid_attn_every)
+    b, s = TRAIN_CHECK
+    data = TokenPipeline(PipelineConfig(vocab=cfg.vocab, global_batch=b,
+                                        seq_len=s, seed=seed)).next()
+    opt = OptimizerConfig(name="adamw", warmup_steps=10, decay_steps=1000)
+    model = Transformer(cfg, device="cuda", seed=seed)
+    cpu = copy.deepcopy(model).to("cpu")
+    out = {}
+    for side, m in (("cuda", model), ("cpu", cpu)):
+        step = make_train_step(m, opt)
+        state = adamw_init(param_leaves(m))
+        batch = {k: torch.as_tensor(v, device=side) for k, v in data.items()}
+        native.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        if side == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(native.LAUNCHES)
+        wall = time.perf_counter() - t0
+        out[side] = (metrics, state, m)
+        log(f"7b: {side} train step {b} x {s} f32: {wall:.3f} s, loss "
+            f"{float(metrics['loss'])}, grad norm "
+            f"{float(metrics['grad_norm'])} {card}")
+    layers = cfg.n_layers
+    want = {"ssd": 2 * layers, "flash_attention": 2, "ssd_sm90": 0,
+            "flash_attention_sm90": 0}
+    got = {k: launches[k] for k in want}
+    assert got == want, (got, want)
+    (mc, sc, gm), (mh, sh, hm) = out["cuda"], out["cpu"]
+    errs = {k: abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k]))
+            for k in ("loss", "grad_norm")}
+    for la, lb in zip(param_leaves(gm), param_leaves(hm)):
+        mu_a = _get(sc["mu"], la.path)
+        mu_b = _get(sh["mu"], la.path)
+        errs["mu/" + la.path] = rel_err(mu_a.cpu(), mu_b)
+        errs[la.path] = max(rel_err(x.detach().cpu(), y.detach())
+                            for x, y in zip(la.parts, lb.parts))
+    bad = {k: e for k, e in errs.items() if not e <= F32_TOL}
+    assert not bad, f"card train step off the CPU path: {bad}"
+    log(f"7b: {MODEL_ARCH} first group at full width ({layers} Mamba2 "
+        f"layers + the shared block), f32: the card's train step equals "
+        f"the CPU path within {F32_TOL} (largest: "
+        f"{max(errs.items(), key=lambda kv: kv[1])}); loss "
+        f"{errs['loss']}, grad norm {errs['grad_norm']} relative; "
+        f"launched {json.dumps(got)} (remat: twice a layer) {card}")
+    del out, model, cpu, gm, sc
+    free()
+    return got
+
+
+def train_full(seed: int, card: str) -> dict:
+    """Phase 7c: zamba2-7b in bf16 at full width and as many groups as
+    fit beside the reserve with AdamW state, trained on ``train_4k``'s
+    sequence: 1 warm-up and 4 timed steps of 2 x 4096 tokens in two
+    microbatches.  Returns the timed steps' launches."""
+    from dataclasses import replace
+    from repro_torch.carry import param_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import native
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Transformer, count_params, param_specs
+    from repro_torch.optim import (OptimizerConfig, adamw_init,
+                                   make_optimizer)
+
+    full = get_config(MODEL_ARCH)
+    per = full.hybrid_attn_every
+    fixed = count_params(param_specs(replace(full, n_layers=0)))
+    group = count_params(param_specs(replace(full, n_layers=per))) - fixed
+    opt = OptimizerConfig(name="adamw", warmup_steps=10, decay_steps=1000)
+    pipe_cfg = PipelineConfig(vocab=full.vocab, global_batch=TRAIN_BATCH,
+                              seq_len=TRAIN_SEQ, seed=seed)
+
+    def run(groups: int, steps: int, warmup: int, profile: bool = False):
+        cfg = replace(full, n_layers=per * groups)
+        model = Transformer(cfg, device="cuda", seed=seed)
+        leaves = param_leaves(model)
+        step = make_train_step(model, opt, microbatch=TRAIN_MICRO)
+        state = adamw_init(leaves)
+        pipe = TokenPipeline(pipe_cfg)
+        sums = [[float(p.detach().double().sum()) for p in leaf.parts]
+                for leaf in leaves]
+        torch.cuda.synchronize()
+        static = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        walls, metrics, counts = [], [], []
+        for i in range(warmup + steps):
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in pipe.next().items()}
+            native.reset_launches()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            if i >= warmup:
+                walls.append(time.perf_counter() - t0)
+                counts.append(dict(native.LAUNCHES))
+            metrics.append({k: float(v) for k, v in m.items()})
+        peak = torch.cuda.max_memory_allocated()
+        changed = [(leaf.path, len(leaf.part_shape),
+                    [float(p.detach().double().sum()) != s0
+                     for p, s0 in zip(leaf.parts, s)])
+                   for leaf, s in zip(leaves, sums)]
+        if profile:
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in pipe.next().items()}
+            log(f"7c: one more step under the profiler: "
+                f"{time_breakdown(lambda: step(state, batch), card)}")
+            # The optimizer's share: one AdamW update alone (zero
+            # gradients cost what any do).
+            grads = [[torch.zeros_like(p) for p in leaf.parts]
+                     for leaf in leaves]
+            update = make_optimizer(opt)[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            update(leaves, grads, state)
+            torch.cuda.synchronize()
+            log(f"7c: one AdamW update over {groups} groups alone: "
+                f"{time.perf_counter() - t0:.6f} s {card}")
+        return cfg, model, walls, metrics, counts, static, peak, changed
+
+    # A one-group probe measures what a step needs beside the weights,
+    # optimizer state, gradients and their sums (remat keeps it to one
+    # group's activations).
+    cfg, model, _, _, _, static, peak, _ = run(1, 1, 0)
+    act = peak - static - STEP_BYTES * (fixed + group)
+    del model
+    free()
+    free_b, _ = torch.cuda.mem_get_info()
+    reserve = max(TRAIN_RESERVE, act + TRAIN_MARGIN)
+    groups = min(full.n_layers // per, int(
+        (free_b - reserve - TRAIN_BYTES * fixed) // (TRAIN_BYTES * group)))
+    assert groups >= 1, f"not one group fits: {free_b} B free"
+    n_params = fixed + groups * group
+    log(f"7c: a step took {act} B beside weights, state, gradients and "
+        f"sums at one group; "
+        f"{free_b} B free, reserve {reserve} B, {TRAIN_BYTES} B a "
+        f"parameter: {groups} of {full.n_layers // per} groups "
+        f"({n_params} parameters) {card}")
+    cfg, model, walls, metrics, counts, static, peak, changed = run(
+        groups, TRAIN_STEPS, TRAIN_WARMUP, profile=True)
+    want = {"ssd_sm90": 2 * TRAIN_MICRO * cfg.n_layers,
+            "flash_attention_sm90": 2 * TRAIN_MICRO * groups,
+            "ssd": 0, "flash_attention": 0}
+    counts = [{k: c[k] for k in want} for c in counts]
+    for got in counts:
+        assert got == want, f"launches a step {got}, want {want}"
+    assert all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in metrics), metrics
+    moved = sum(c for _, _, ch in changed for c in ch)
+    parts = sum(len(ch) for _, _, ch in changed)
+    still = [path for path, ndim, ch in changed if ndim >= 2 and not all(ch)]
+    assert not still, f"matrices that never changed: {still}"
+    med = statistics.median(walls)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    share = 6 * n_params * tokens / BF16_TENSOR_FLOPS / med
+    log(f"7c: {MODEL_ARCH} bf16, d_model {cfg.d_model}, {groups} groups "
+        f"({cfg.n_layers} Mamba2 layers, no tail; {n_params} parameters), "
+        f"AdamW, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {TRAIN_MICRO} "
+        f"microbatches: step median {med:.6f} s (steps "
+        f"{[round(w, 6) for w in walls]}) = {tokens / med:.1f} tokens/s; "
+        f"6 N tokens / 989 TFLOP/s = {100 * share:.3f}% of the step; "
+        f"peak {peak} B ({static} B of weights and state); launches "
+        f"each timed step {json.dumps(counts)}; losses "
+        f"{[m['loss'] for m in metrics]}, grad norms "
+        f"{[m['grad_norm'] for m in metrics]}; {moved} of {parts} "
+        f"parameter tensors changed (bf16 norm weights at 1.0 move by "
+        f"less than half an ulp at lr {metrics[-1]['lr']:.3g}) {card}")
+    del model
+    free()
+    return {k: sum(c[k] for c in counts) for k in want}
+
+
+def train_loop(seed: int, card: str) -> dict:
+    """Phase 7d: ``run_training`` at zamba2-7b's smoke config (f32) on
+    the card: 20 steps with a checkpoint every 5, losses falling; a run
+    that crashes at step 7 and a new run that resumes from 5, whose
+    losses equal the uninterrupted run's within 1e-5; the checkpoint's
+    bytes and a save's seconds; and the last checkpoint restored on the
+    CPU path bit-identical to the card's parameters."""
+    from repro_torch.carry import (jax_params, load_jax_params,
+                                   param_leaves, param_template)
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import native
+    from repro_torch.models import Transformer
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import TrainLoopConfig, run_training
+
+    cfg = smoke(get_config(MODEL_ARCH))
+    pipe = lambda: TokenPipeline(PipelineConfig(
+        vocab=cfg.vocab, global_batch=8, seq_len=128, seed=seed))
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        model = Transformer(cfg, device="cuda", seed=seed)
+        loop = lambda d: TrainLoopConfig(total_steps=LOOP_STEPS,
+                                         checkpoint_every=LOOP_EVERY,
+                                         checkpoint_dir=os.path.join(root, d))
+        native.reset_launches()
+        t0 = time.perf_counter()
+        full = run_training(model, pipe(), loop("full"), rng_seed=seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(native.LAUNCHES)
+        per_step = {"ssd": 2 * cfg.n_layers, "flash_attention":
+                    2 * (cfg.n_layers // cfg.hybrid_attn_every)}
+        want = {k: v * LOOP_STEPS for k, v in per_step.items()}
+        want.update(ssd_sm90=0, flash_attention_sm90=0)
+        got = {k: launches[k] for k in want}
+        assert got == want, (got, want)
+        first, last = full.losses[:5], full.losses[-5:]
+        assert full.final_step == LOOP_STEPS and \
+            statistics.mean(last) < statistics.mean(first), full.losses
+
+        def crash(step):
+            if step == LOOP_CRASH:
+                raise RuntimeError("simulated node loss")
+            return False
+
+        try:
+            run_training(model, pipe(), loop("crash"), failure_injector=crash,
+                         rng_seed=seed)
+        except RuntimeError as e:
+            assert "simulated node loss" in str(e)
+        else:
+            raise AssertionError("the injected crash did not happen")
+        resumed = run_training(model, pipe(), loop("crash"), rng_seed=seed)
+        assert resumed.resumed_from == LOOP_EVERY, resumed.resumed_from
+        diff = max(abs(a - b) for a, b in
+                   zip(resumed.losses, full.losses[LOOP_EVERY:]))
+        assert len(resumed.losses) == LOOP_STEPS - LOOP_EVERY and \
+            diff <= LOOP_TOL, f"resumed losses off by {diff}"
+
+        # The resumed run's last checkpoint, restored on the CPU path,
+        # holds the card's parameters.
+        cpu = Transformer(cfg, device="cpu", seed=seed + 1)
+        restored, extra = CheckpointManager(os.path.join(
+            root, "crash")).restore({"params": param_template(cpu),
+                                     "opt": adamw_init(param_leaves(cpu))})
+        load_jax_params(cpu, restored["params"])
+        assert extra["step"] == LOOP_STEPS
+        for (k, a), (_, b) in zip(cpu.params.named_parameters(),
+                                  model.params.named_parameters()):
+            assert torch.equal(a, b.detach().cpu()), k
+        # Its own optimizer state back on the card, and a blocking save
+        # of it timed as the loop takes one on SIGTERM: the parameters
+        # off the card and the whole state written.
+        on_card = lambda t: {k: on_card(v) if isinstance(v, dict) else
+                             v.to(model.device) for k, v in t.items()}
+        opt_state = on_card(restored["opt"])
+        mgr = CheckpointManager(os.path.join(root, "timed"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(LOOP_STEPS, {"params": jax_params(model), "opt": opt_state},
+                 extra={"step": LOOP_STEPS}, blocking=True)
+        save_s = time.perf_counter() - t0
+        size = dir_bytes(os.path.join(root, "timed",
+                                      f"step_{LOOP_STEPS:08d}"))
+        log(f"7d: run_training at {cfg.name}'s smoke config (f32, "
+            f"{cfg.n_layers} layers, d_model {cfg.d_model}) on the card: "
+            f"{LOOP_STEPS} steps of 8 x 128 in {wall:.3f} s, loss "
+            f"{full.losses[0]:.6f} -> {full.losses[-1]:.6f} (mean of the "
+            f"first five {statistics.mean(first):.6f}, last five "
+            f"{statistics.mean(last):.6f}); launched {json.dumps(got)}; "
+            f"crash at step {LOOP_CRASH}, resumed from "
+            f"{resumed.resumed_from}: losses within {diff} of the "
+            f"uninterrupted run's; checkpoint {size} B on "
+            f"{fs_type(root)}, a blocking save of the resumed run's "
+            f"parameters and AdamW state {save_s:.6f} s; the last "
+            f"checkpoint restored on the CPU path equals the card's "
+            f"parameters bit for bit {card}")
+        return got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_phase(records: list, seed: int, card: str) -> None:
+    """Phase 7: gradients through the kernels (7a), the f32 train step
+    against the CPU path (7b), bf16 training at full width (7c) and the
+    train loop with a crash and a resume (7d).  The kernels' records
+    gain the training paths' launches."""
+    t0 = time.perf_counter()
+    grad_checks(records, seed, card)
+    launches = {}
+    for part in (train_check(seed, card), train_full(seed, card),
+                 train_loop(seed, card)):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    for rec in records:
+        if rec["name"] in launches:
+            rec["train_launches"] = launches[rec["name"]]
+            rec["launches"] += launches[rec["name"]]
+    log(f"phase 7: {time.perf_counter() - t0:.3f} s; training launches "
+        f"{json.dumps(launches)} {card}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3115,6 +3562,7 @@ def main(argv=None) -> int:
     launches = {k: v + moe.get(k, 0) for k, v in launches.items()}
     workload_phase(args.seed)
     records += model_kernel_checks(launches, args.seed, card)
+    train_phase(records, args.seed, card)
     log(smi)
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

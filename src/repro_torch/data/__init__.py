@@ -1,6 +1,7 @@
-"""Dataset-side stores on the port's LSM-tree.  The token pipeline is
-not ported yet (it comes with training)."""
+"""Dataset-side code: the token pipeline training reads, and stores on
+the port's LSM-tree."""
 
+from .pipeline import PipelineConfig, TokenPipeline
 from .versioned_store import VersionedSampleStore
 
-__all__ = ["VersionedSampleStore"]
+__all__ = ["PipelineConfig", "TokenPipeline", "VersionedSampleStore"]

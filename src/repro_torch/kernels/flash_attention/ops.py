@@ -9,6 +9,11 @@ one launch over every (batch, head, query tile), or raises.
 before the launch: bf16 with D % 8 == 0 goes to the wgmma kernel, the
 rest (f32, odd head dims) to the CUDA-core kernel.  Both read the (B,
 S, H, D) layout as it lies: nothing is padded or transposed.
+
+On a CUDA tensor the launch goes through ``FlashAttention``, whose
+backward is the plain version's vector-Jacobian product, so a loss
+built on the kernel's output has the gradient the reference trains
+with.
 """
 
 from __future__ import annotations
@@ -22,6 +27,10 @@ from .. import native
 from .ref import attention_ref
 
 MAX_HEAD_DIM = 256
+# The backward recomputes the plain version a slice of KV heads at a
+# time, its f32 scores at most this large: at 1 x 4096 with 32 heads the
+# whole (B, H, Sq, Skv) is 2 GB a tensor, and autograd keeps several.
+VJP_SCORE_BYTES = 1 << 29
 
 
 def flash_attention(q, k, v, *, scale=None, causal: bool = True,
@@ -32,7 +41,46 @@ def flash_attention(q, k, v, *, scale=None, causal: bool = True,
         if q.device.type == "cpu":
             return attention_ref(q, k, v, scale=scale, causal=causal,
                                  window=window)
-        return _launch(q, k, v, scale, causal, window)
+        return FlashAttention.apply(_launch, scale, causal, window, q, k, v)
+
+
+class FlashAttention(torch.autograd.Function):
+    """A kernel's forward with the plain version's backward.
+
+    ``forward`` calls ``launch(q, k, v, scale, causal, window)``
+    (``_launch``, which launches the kernel ``kernel_for`` picks; a test
+    passes the plain version); ``backward`` recomputes ``attention_ref``
+    on the saved inputs under autograd and returns its vector-Jacobian
+    product, a slice of KV heads (with their query heads) at a time:
+    heads are independent, so the slices' products are the whole one's.
+    That is the reference's gradient: the JAX package trains through
+    the plain ``masked_attention``; no Pallas kernel there has a
+    backward."""
+
+    @staticmethod
+    def forward(ctx, launch, scale, causal, window, q, k, v):
+        ctx.opts = dict(scale=scale, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v)
+        return launch(q, k, v, scale, causal, window)
+
+    @staticmethod
+    def backward(ctx, go):
+        q, k, v = ctx.saved_tensors
+        b, sq, hq, _ = q.shape
+        skv, hkv = k.shape[1], k.shape[2]
+        group = hq // hkv
+        per = max(1, VJP_SCORE_BYTES // (4 * b * group * sq * skv))
+        needs = ctx.needs_input_grad[4:]
+        parts = []
+        for j in range(0, hkv, per):
+            hs = slice(j * group, (j + per) * group)
+            parts.append(native.plain_vjp(
+                lambda *a: attention_ref(*a, **ctx.opts),
+                (q[:, :, hs], k[:, :, j:j + per], v[:, :, j:j + per]),
+                (go[:, :, hs],), needs))
+        grads = tuple(torch.cat(g, dim=2) if n else None
+                      for g, n in zip(zip(*parts), needs))
+        return (None, None, None, None) + grads
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int, hq: int, hkv: int) -> str:

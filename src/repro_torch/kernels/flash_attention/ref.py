@@ -4,7 +4,8 @@
 Causal over the suffix alignment (queries are the last ``q_len``
 positions of the kv stream), optional sliding window (attend to
 positions in (pos - window, pos]), GQA by head-group repetition, f32
-math, output in q's type; a row with no valid key gives 0.
+math (f64 for f64 inputs), output in q's type; a row with no valid key
+gives 0.
 """
 
 from __future__ import annotations
@@ -20,9 +21,10 @@ def attention_ref(q, k, v, *, scale=None, causal=True, window=None):
     group = hq // hkv
     if scale is None:
         scale = d ** -0.5
+    f = torch.promote_types(q.dtype, torch.float32)
     kr = torch.repeat_interleave(k, group, dim=2)
     vr = torch.repeat_interleave(v, group, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(f), kr.to(f)) * scale
     q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
     k_pos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -35,5 +37,5 @@ def attention_ref(q, k, v, *, scale=None, causal=True, window=None):
     p = torch.where(mask[None, None], p, 0.0)
     denom = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(denom == 0.0, 1.0, denom)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, vr.float())
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vr.to(f))
     return o.to(q.dtype)

@@ -13,7 +13,8 @@ kernel builds its library.
 
 ``LAUNCHES`` counts kernel launches per kernel name.  Each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels.  ``plain_vjp`` is the
+backward of the model kernels' autograd Functions.
 """
 
 from __future__ import annotations
@@ -154,3 +155,19 @@ def require_cuda(name: str, *tensors: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"{name}: kernel needs CUDA tensors, got {dev}")
     return dev
+
+
+def plain_vjp(fn, inputs, grad_outputs, needs) -> tuple:
+    """The vector-Jacobian product of ``fn`` (a kernel's plain version)
+    at ``inputs``, recomputed under autograd: the gradient of each input
+    whose ``needs`` is true (None for the others) given the gradients of
+    ``fn``'s outputs."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(n))
+                  for t, n in zip(inputs, needs)]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        want = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(outs, want, grad_outputs,
+                                       allow_unused=True) if want else ())
+    return tuple(next(got) if n else None for n in needs)

@@ -13,6 +13,10 @@ the ``dac`` cumsum, a loop over chunks carrying the state, and the
 inter-chunk output.  Unlike the reference it never broadcasts B and C
 over heads: the kernels read them by batch index, and ``y_inter``
 applies ``exp(dac)`` after the head-free product with C.
+
+On a CUDA tensor the launch goes through ``SSDChunks``, whose backward
+is the plain version's vector-Jacobian product, so a loss built on the
+kernel's outputs has the gradient the reference trains with.
 """
 
 from __future__ import annotations
@@ -35,7 +39,32 @@ def ssd_chunks(x, dac, dt, B, C, *, chunk: int):
     with span("kernel.ssd", n=int(x.numel())):
         if x.device.type == "cpu":
             return ssd_chunks_ref(x, dac, dt, B, C, chunk=chunk)
-        return _launch(x, dac, dt, B, C, chunk)
+        return SSDChunks.apply(_launch, chunk, x, dac, dt, B, C)
+
+
+class SSDChunks(torch.autograd.Function):
+    """A kernel's forward with the plain version's backward.
+
+    ``forward`` calls ``launch(x, dac, dt, B, C, chunk)`` (``_launch``,
+    which launches the kernel ``kernel_for`` picks; a test passes the
+    plain version); ``backward`` recomputes ``ssd_chunks_ref`` on the
+    saved inputs under autograd and returns its vector-Jacobian
+    product.  That is the reference's gradient: the JAX package trains
+    through ``ssd_chunked_scan`` with ``use_kernel=False``, autodiff of
+    its plain path; no Pallas kernel there has a backward."""
+
+    @staticmethod
+    def forward(ctx, launch, chunk, x, dac, dt, B, C):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dac, dt, B, C)
+        return launch(x, dac, dt, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstates):
+        chunk = ctx.chunk
+        return (None, None) + native.plain_vjp(
+            lambda *a: ssd_chunks_ref(*a, chunk=chunk), ctx.saved_tensors,
+            (gy, gstates), ctx.needs_input_grad[2:])
 
 
 def sm90_smem_bytes(p: int, n: int, chunk: int) -> int:

@@ -1,6 +1,7 @@
 """Plain PyTorch version of the SSD intra-chunk kernel: the per-cell
 math of ``repro.kernels.ssd.ref._chunk_intra``, vectorized over batch,
-chunks and heads, in f32."""
+chunks and heads, in f32 (in f64 for f64 inputs, so that gradient
+checks can run in double precision)."""
 
 from __future__ import annotations
 
@@ -18,11 +19,12 @@ def ssd_chunks_ref(x, dac, dt, B, C, *, chunk: int):
     b, s, h, p = x.shape
     n = B.shape[-1]
     nc = s // chunk
-    xq = x.reshape(b, nc, chunk, h, p).float()
-    dacq = dac.reshape(b, nc, chunk, h).float()
-    dtq = dt.reshape(b, nc, chunk, h).float()
-    Bq = B.reshape(b, nc, chunk, n).float()
-    Cq = C.reshape(b, nc, chunk, n).float()
+    f = torch.promote_types(x.dtype, torch.float32)
+    xq = x.reshape(b, nc, chunk, h, p).to(f)
+    dacq = dac.reshape(b, nc, chunk, h).to(f)
+    dtq = dt.reshape(b, nc, chunk, h).to(f)
+    Bq = B.reshape(b, nc, chunk, n).to(f)
+    Cq = C.reshape(b, nc, chunk, n).to(f)
     CB = torch.einsum("bctn,bcun->bctu", Cq, Bq)
     causal = torch.ones(chunk, chunk, dtype=torch.bool,
                         device=x.device).tril()[None, None, :, :, None]

@@ -1,4 +1,5 @@
-"""Shared neural layers: RMSNorm, rotary embeddings, SwiGLU MLP.
+"""Shared neural layers: RMSNorm, rotary embeddings, SwiGLU MLP, the
+cross-entropy loss.
 
 Norms and activations compute in f32 and cast back to the input's type,
 as ``repro.models.layers`` does.
@@ -45,3 +46,16 @@ def swiglu(x, w_gate, w_up, w_down):
     u = x @ w_up
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ w_down
+
+
+def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0):
+    """Mean CE over tokens; logits (..., V) in any type, f32 math.  The
+    label's logit is gathered (the reference selects it with an
+    iota-compare, which shards over vocab; the value is the same)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = (lse - ll).mean()
+    if z_loss:
+        loss = loss + z_loss * (lse ** 2).mean()
+    return loss

@@ -14,10 +14,17 @@ like the JAX package's param dicts (``params["groups"][g][j]["w_in"]``),
 drawn from ``init_params`` with a seed on the model's device, or loaded
 from the JAX package's arrays by ``repro_torch.carry.load_jax_params``.
 
-Entry points (no gradients; training is not ported):
-  forward_train(tokens|embeds)          -> logits
+Entry points:
+  forward_train(tokens|embeds)          -> logits, differentiable
   prefill(tokens|embeds)                -> (logits, cache)
   decode_step(token, cache, pos)        -> (logits, cache), in place
+
+Parameters are frozen (``requires_grad=False``) unless
+``trainable(True)`` is called, as a train step does; prefill and
+decode run without gradients either way.  With ``cfg.remat == "full"``
+``forward_train`` recomputes each layer (dense, SSM) or each group and
+tail layer (hybrid) in the backward, as the JAX package's
+``_maybe_remat`` does, so every kernel launches twice a backward pass.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -45,7 +53,8 @@ def _module(value):
 
 
 class ParamTree(nn.Module):
-    """A nested dict of parameters: tensors become (frozen) parameters,
+    """A nested dict of parameters: tensors become parameters (frozen
+    until ``Transformer.trainable``),
     dicts ``ParamTree``s and lists ``nn.ModuleList``s; indexed by key
     like the JAX package's param dicts."""
 
@@ -179,9 +188,24 @@ class Transformer(nn.Module):
         # (global layers take the full path).
         self._static_window = (cfg.local_window if cfg.local_global
                                else cfg.window)
+        self.params = ParamTree(self._draw(seed, device))
+
+    def _draw(self, seed: int, device) -> dict:
         gen = torch.Generator(device=device).manual_seed(seed)
-        self.params = ParamTree(init_params(param_specs(cfg), gen,
-                                            self.dtype, device))
+        return init_params(param_specs(self.cfg), gen, self.dtype, device)
+
+    @torch.no_grad()
+    def reseed(self, seed: int) -> None:
+        """Draw every parameter anew as ``Transformer(cfg, seed=seed)``
+        on this device does."""
+        self._load(self._draw(seed, self.device), self.params)
+
+    def trainable(self, flag: bool = True) -> "Transformer":
+        """Let autograd reach the parameters (a train step), or freeze
+        them again (serving)."""
+        for p in self.params.parameters():
+            p.requires_grad_(flag)
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -283,24 +307,47 @@ class Transformer(nn.Module):
                 + start)[None].expand(b, s)
 
     # ----------------------------------------------------- forward paths
-    @torch.no_grad()
     def forward_train(self, tokens=None, embeds=None):
-        """Teacher-forced forward -> logits (B, S, V)."""
+        """Teacher-forced forward -> logits (B, S, V); differentiable,
+        each remat unit (``_train_units``) recomputed in the backward
+        under ``cfg.remat == "full"``."""
         x = self._embed_in(tokens, embeds)
-        x, _ = self._stack(x, keep_cache=False)
+        positions = self._positions(x.shape[0], x.shape[1])
+        remat = self.cfg.remat == "full"
+        for unit in self._train_units(positions):
+            x = checkpoint(unit, x, use_reentrant=False) if remat \
+                else unit(x)
         return self._head_out(x)
+
+    def _train_units(self, positions) -> list:
+        """The stack as the JAX package's remat units: a layer (dense,
+        SSM), a group of Mamba2 layers with the shared block after it,
+        or a tail layer (hybrid)."""
+        c, p = self.cfg, self.params
+        if c.family in _DENSE:
+            return [lambda x, lp=lp, w=w:
+                    self._block_dense(x, lp, w, positions)[0]
+                    for lp, w in zip(p["layers"], self._window_vector())]
+        if c.family == "ssm":
+            return [lambda x, lp=lp: self._block_mamba(x, lp["mamba"])[0]
+                    for lp in p["layers"]]
+        units = [lambda x, g=g: self._shared(
+                     self._mamba_run(x, g, False)[0], positions)[0]
+                 for g in p["groups"]]
+        return units + [lambda x, lp=lp: self._block_mamba(x, lp)[0]
+                        for lp in (p["tail"] if "tail" in p else [])]
 
     @torch.no_grad()
     def prefill(self, tokens=None, embeds=None):
         """Forward + a KV/state cache sized to the input length; returns
         (last-position logits (B, 1, V), cache)."""
         x = self._embed_in(tokens, embeds)
-        x, cache = self._stack(x, keep_cache=True)
+        x, cache = self._stack(x)
         return self._head_out(x[:, -1:]), cache
 
-    def _stack(self, x, keep_cache: bool):
-        """Run every layer over the whole sequence; with ``keep_cache``
-        also return the cache (the JAX package's stacked layout)."""
+    def _stack(self, x):
+        """Run every layer over the whole sequence; return the output
+        and the cache (the JAX package's stacked layout)."""
         c = self.cfg
         p = self.params
         b, s, _ = x.shape
@@ -309,30 +356,24 @@ class Transformer(nn.Module):
             ks, vs = [], []
             for lp, w in zip(p["layers"], self._window_vector()):
                 x, (k, v) = self._block_dense(x, lp, w, positions)
-                if keep_cache:
-                    ks.append(k)
-                    vs.append(v)
-            return x, ({"k": torch.stack(ks), "v": torch.stack(vs)}
-                       if keep_cache else None)
+                ks.append(k)
+                vs.append(v)
+            return x, {"k": torch.stack(ks), "v": torch.stack(vs)}
         if c.family == "ssm":
             x, hs, convs = self._mamba_run(x, [lp["mamba"]
-                                               for lp in p["layers"]],
-                                           keep_cache)
-            return x, ({"h": hs, "conv": convs} if keep_cache else None)
+                                               for lp in p["layers"]], True)
+            return x, {"h": hs, "conv": convs}
         cache: dict = {"gh": [], "gconv": [], "ak": [], "av": []}
         for group in p["groups"]:
-            x, hs, convs = self._mamba_run(x, group, keep_cache)
+            x, hs, convs = self._mamba_run(x, group, True)
             x, (k, v) = self._shared(x, positions)
-            if keep_cache:
-                for key, val in zip(("gh", "gconv", "ak", "av"),
-                                    (hs, convs, k, v)):
-                    cache[key].append(val)
-        cache = {k: torch.stack(v) for k, v in cache.items()} \
-            if keep_cache else None
+            for key, val in zip(("gh", "gconv", "ak", "av"),
+                                (hs, convs, k, v)):
+                cache[key].append(val)
+        cache = {k: torch.stack(v) for k, v in cache.items()}
         if "tail" in p:
-            x, hs, convs = self._mamba_run(x, p["tail"], keep_cache)
-            if keep_cache:
-                cache["th"], cache["tconv"] = hs, convs
+            x, cache["th"], cache["tconv"] = self._mamba_run(x, p["tail"],
+                                                             True)
         return x, cache
 
     def _mamba_run(self, x, layers, keep_cache: bool):
@@ -347,15 +388,18 @@ class Transformer(nn.Module):
         return x, torch.stack(hs), torch.stack(convs)
 
     # ------------------------------------------------------------- serve
-    def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
-        """Zeroed decode cache on the model's device, in the JAX
-        package's layout."""
+    def init_cache(self, batch: int, max_len: int, dtype=None,
+                   device=None) -> dict:
+        """Zeroed decode cache on the model's device (or ``device``:
+        "meta" gives its shapes without memory), in the JAX package's
+        layout."""
         c = self.cfg
         dtype = dtype or self.dtype
+        device = device or self.device
         hd = c.head_dim_
 
         def zeros(shape, dt=dtype):
-            return torch.zeros(shape, dtype=dt, device=self.device)
+            return torch.zeros(shape, dtype=dt, device=device)
 
         if c.family in _DENSE:
             shape = (c.n_layers, batch, max_len, c.n_kv_heads, hd)

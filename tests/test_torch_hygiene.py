@@ -117,7 +117,11 @@ SLICE_MODULES = ("repro_torch.configs", "repro_torch.models",
                  "repro_torch.runtime", "repro_torch.launch.serve",
                  "repro_torch.carry", "repro_torch.baselines",
                  "repro_torch.baselines.workload", "repro_torch.data",
-                 "repro_torch.data.versioned_store")
+                 "repro_torch.data.versioned_store", "repro_torch.optim",
+                 "repro_torch.ckpt", "repro_torch.launch.steps",
+                 "repro_torch.launch.train", "repro_torch.runtime.train_loop",
+                 "repro_torch.runtime.straggler",
+                 "repro_torch.data.pipeline")
 
 
 def test_model_stack_modules_load_neither_jax_nor_repro():
@@ -224,3 +228,28 @@ def test_moe_model_and_cli_want_the_card(arch):
     # device check comes first.
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", arch])
+
+
+def test_train_cli_wants_the_card_and_trains_on_the_cpu(tmp_path):
+    """``launch.train`` raises without a card unless ``--device cpu`` is
+    given (before building anything), and trains there."""
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "zamba2-7b", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "zamba2-7b"])  # full width: never built
+    res = train.main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu",
+                      "--steps", "2", "--global-batch", "2", "--seq", "32",
+                      "--ckpt-dir", str(tmp_path)])
+    assert res.final_step == 2 and len(res.losses) == 2
+    assert all(np.isfinite(res.losses))
+    assert (tmp_path / "step_00000002" / "arrays.npz").exists()
+
+
+def test_full_width_train_state_outgrows_one_card():
+    """zamba2-7b's 6.75 B parameters with their gradients and AdamW
+    moments need about 81 GB: more than one 80 GB card holds."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_state_bytes
+    need = train_state_bytes(get_config("zamba2-7b"))
+    assert 80e9 < need < 82e9
