@@ -200,6 +200,32 @@ result.  Phases, each of which fails the run on any error:
    one that resumes from 5 within 1e-5 of the uninterrupted losses; the
    checkpoint's bytes and a blocking save's seconds; the last checkpoint
    restored on the CPU path bit-identical to the card's parameters.
+8. Meshes and analysis.  8a: one NCCL rank on the card, the production
+   axis names ('pod', 'data', 'model') at size 1; phase 7b's step with
+   parameters, AdamW state and batch placed as DTensors by
+   ``tree_shardings`` / ``opt_state_shardings`` / ``batch_shardings``
+   equals the same step unsharded on the card within 1e-3 of each
+   tensor's largest magnitude, the wrappers' DTensor branch launching
+   ``ssd`` 12 and ``flash_attention`` 2 times; then mixtral-8x7b in bf16
+   at 2 layers and full width prefills 2 x 128 tokens through the mesh,
+   equal to its unsharded prefill, one ``flash_attention_sm90`` launch
+   a layer.  8b (two ranks on the one card) is not run: NCCL refuses
+   two ranks on one GPU, and two gloo ranks on cuda:0 run the c10d
+   collectives but crash (SIGSEGV in ``wait_tensor``) in the functional
+   all-gather DTensor calls.  8c: ``quantize_roundtrip`` on the card equals
+   the CPU path bit for bit on 8a's gradient leaves, and 50 compressed
+   reductions over the one-rank 'pod' group average to the gradient
+   within 2e-3.  8d: the dry-run of zamba2-7b ``train_4k`` and
+   mixtral-8x7b ``prefill_32k`` on the 16 x 16 mesh, traced on the host
+   over a fake process group of 256 by ``python -m
+   repro_torch.launch.dryrun``, one process a cell, started after phase
+   4 and run (niced, no card) while the card takes phases 5-8c: their
+   table rows (model estimates from the data sheet) and seconds.  8e
+   (on phase 2's store, after its lookups): 3 lookup batches under the
+   tracer, the exported Chrome
+   trace read by ``analysis.report``: wall, perfect-overlap bound, gap,
+   per-shard busy and stall, and ``cascade_sm90`` launches a lookup
+   equal to the kernel counters'.
 
 The line before the last is the kernels' JSON record, the one before
 it the card's name and power limit; the last line is
@@ -1510,6 +1536,7 @@ def store_phases(card: str) -> list[dict]:
               "put_lat": put_lat, "lookup_lat": lat, "desc_load": desc_load,
               "desc_lookups": described(eng)}
     log(device_busy(eng, batches[:4]))
+    traced = trace_phase(eng, batches, card)
 
     # 2b. range scans on the same store at the default gates, and 2c.
     # a second store with the background scheduler, held to this one.
@@ -1528,6 +1555,7 @@ def store_phases(card: str) -> list[dict]:
                                 "scheduler store": sched_launches[
                                     "merge_path_sm90"]},
             "cascade_sm90": {"lookups": main_launches["cascade_sm90"],
+                             "traced lookups": traced["cascade_sm90"],
                              "scheduler store lookups": sched_launches[
                                  "cascade_sm90"]},
             "interval_sm90": {"scans": scans["launches"]["interval_sm90"]}}
@@ -3536,6 +3564,310 @@ def train_phase(records: list, seed: int, card: str) -> None:
         f"{json.dumps(launches)} {card}")
 
 
+# ------------------------------------------------- meshes and analysis
+MESH_AXES = ("pod", "data", "model")  # the production names, at size 1
+MESH_MOE = (2, 2, 128)  # 8a's mixtral prefill: bf16 layers, batch, tokens
+COMPRESS_STEPS = 50  # 8c: the error-feedback mean of the reference test
+COMPRESS_TOL = 2e-3
+COMPRESS_PREFIX = 1 << 20  # values of each leaf held to the CPU (whole blocks)
+DRYRUN_CELLS = (("zamba2-7b", "train_4k"), ("mixtral-8x7b", "prefill_32k"))
+DRYRUN_TIMEOUT = 300  # s a cell may still take once phase 8 waits for it
+TRACE_BATCHES = 3  # 8e: phase 2's lookup batches under the tracer
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def one_rank_mesh():
+    """A one-rank NCCL group on the card and the production axis names
+    at size 1 on it."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_compat
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    return make_mesh_compat((1, 1, 1), MESH_AXES, device_type="cuda")
+
+
+def sharded_train_check(mesh, seed: int, card: str) -> tuple[dict, list]:
+    """Phase 8a: phase 7b's step (zamba2-7b's first group at full width,
+    f32, AdamW, one ``TokenPipeline`` batch) with parameters, AdamW
+    state and batch placed as DTensors by ``tree_shardings`` /
+    ``opt_state_shardings`` / ``batch_shardings`` on the one-rank mesh,
+    against the same step unsharded on the card: loss, grad norm, every
+    updated parameter and first moment within 1e-3 of each tensor's
+    largest magnitude, and the DTensor branch of the wrappers launching
+    ``ssd`` and ``flash_attention`` as often as 7b.  Returns the
+    sharded step's launches and its gradients (for 8c)."""
+    from dataclasses import replace
+    from repro_torch.carry import param_leaves
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import native
+    from repro_torch.launch.steps import (batch_shardings, make_train_step,
+                                          opt_state_shardings)
+    from repro_torch.models import Transformer, distribute_tree
+    from repro_torch.models.layers import cross_entropy_loss
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.optim.optimizer import _get
+
+    cfg = get_config(MODEL_ARCH)
+    cfg = replace(cfg, dtype="float32", n_layers=cfg.hybrid_attn_every)
+    b, s = TRAIN_CHECK
+    data = TokenPipeline(PipelineConfig(vocab=cfg.vocab, global_batch=b,
+                                        seq_len=s, seed=seed)).next()
+    opt = OptimizerConfig(name="adamw", warmup_steps=10, decay_steps=1000)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    plain = Transformer(cfg, device="cuda", seed=seed)
+    state0 = adamw_init(param_leaves(plain))
+    state0, m0 = make_train_step(plain, opt)(state0, batch)
+    model = Transformer(cfg, device="cuda", seed=seed).shard(mesh)
+    bsh = batch_shardings(cfg, SHAPES["train_4k"], mesh, model.rules, model)
+    osh = opt_state_shardings("adamw", model.param_specs(), mesh,
+                              model.rules)
+    state = distribute_tree(adamw_init(param_leaves(model)), osh)
+    dbatch = distribute_tree(batch, bsh)
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    state, m1 = step(state, dbatch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    want = {"ssd": 2 * cfg.n_layers, "flash_attention": 2, "ssd_sm90": 0,
+            "flash_attention_sm90": 0}
+    got = {k: launches[k] for k in want}
+    assert got == want, (got, want)
+    errs = {k: abs(float(m1[k]) - float(m0[k])) / abs(float(m0[k]))
+            for k in ("loss", "grad_norm")}
+    for la, lb in zip(param_leaves(model), param_leaves(plain)):
+        errs["mu/" + la.path] = rel_err(
+            _get(state["mu"], la.path).full_tensor(),
+            _get(state0["mu"], la.path))
+        errs[la.path] = max(rel_err(x.detach().full_tensor(), y.detach())
+                            for x, y in zip(la.parts, lb.parts))
+    bad = {k: e for k, e in errs.items() if not e <= F32_TOL}
+    assert not bad, f"sharded train step off the plain one: {bad}"
+    log(f"8a: {MODEL_ARCH} first group at full width, f32, on a one-rank "
+        f"NCCL mesh {dict(zip(MESH_AXES, mesh.shape))}: the DTensor train "
+        f"step ({wall:.3f} s) equals the unsharded card step within "
+        f"{F32_TOL} (largest: {max(errs.items(), key=lambda kv: kv[1])}); "
+        f"loss {errs['loss']}, grad norm {errs['grad_norm']} relative; "
+        f"launched {json.dumps(got)} through the wrappers' DTensor branch "
+        f"{card}")
+    # The gradients of the step's batch on the sharded model (8c's).
+    with model._mesh_context():
+        model.trainable(True)
+        loss = cross_entropy_loss(model.forward_train(
+            tokens=dbatch["tokens"]), dbatch["labels"])
+        loss.full_tensor().backward()
+    grads = [p.grad.to_local().detach() for p in model.params.parameters()]
+    del plain, model, state, state0
+    free()
+    return got, grads
+
+
+def sharded_moe_prefill(mesh, seed: int, card: str) -> dict:
+    """Phase 8a (cont.): a bf16 prefill of mixtral-8x7b at 2 layers and
+    full width through the same mesh, held to the unsharded prefill of
+    the same model, one ``flash_attention_sm90`` launch a layer."""
+    from dataclasses import replace
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import native
+    from repro_torch.launch.steps import batch_shardings
+    from repro_torch.models import Transformer, distribute_tree
+
+    layers, b, s = MESH_MOE
+    cfg = replace(get_config(MOE_ARCH), n_layers=layers)
+    model = Transformer(cfg, device="cuda", seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 8)
+    toks = torch.randint(0, cfg.vocab, (b, s), device="cuda", generator=g)
+    want, _ = model.prefill(tokens=toks)
+    model.shard(mesh)
+    bsh = batch_shardings(cfg, SHAPES["prefill_32k"], mesh, model.rules,
+                          model)
+    dtoks = distribute_tree({"tokens": toks}, bsh)["tokens"]
+    torch.cuda.synchronize()
+    native.reset_launches()
+    got, cache = model.prefill(tokens=dtoks)
+    torch.cuda.synchronize()
+    launches = {k: native.LAUNCHES[k]
+                for k in ("flash_attention_sm90", "flash_attention")}
+    assert launches == {"flash_attention_sm90": layers,
+                        "flash_attention": 0}, launches
+    err = rel_err(got.full_tensor(), want)
+    assert err <= F32_TOL, f"sharded MoE prefill off by {err}"
+    log(f"8a: {MOE_ARCH} bf16 at {layers} layers, full width, {b} x {s} "
+        f"tokens, through the mesh: logits within {err} of the unsharded "
+        f"prefill's largest magnitude; launched {json.dumps(launches)} "
+        f"{card}")
+    del model, cache
+    free()
+    return launches
+
+
+def compress_checks(mesh, grads: list, card: str) -> None:
+    """Phase 8c: ``quantize_roundtrip`` on the card equals the CPU path
+    bit for bit on 8a's gradient leaves (the first 2^20 values of each,
+    whole 256-value blocks: the CPU's pass over all 0.9 B would take
+    minutes), and the reference test's
+    50-step error-feedback mean over the one-rank 'pod' group stays
+    within 2e-3 of the gradient."""
+    from repro_torch.optim import (make_compressed_crosspod_reduce,
+                                   quantize_roundtrip)
+    n = 0
+    for g in grads:
+        g = g.reshape(-1)[:COMPRESS_PREFIX]
+        y, r = quantize_roundtrip(g)
+        cy, cr = quantize_roundtrip(g.cpu())
+        assert torch.equal(y.cpu(), cy) and torch.equal(r.cpu(), cr), \
+            f"roundtrip of a {g.numel()}-value leaf differs on the card"
+        n += g.numel()
+    reduce_fn = make_compressed_crosspod_reduce(mesh)
+    g = [grads[0].reshape(-1)[:4096].float()]
+    g = [g[0] / g[0].abs().max()]  # the reference test's unit scale
+    e = [torch.zeros_like(g[0])]
+    total = torch.zeros_like(g[0])
+    for _ in range(COMPRESS_STEPS):
+        red, e = reduce_fn(g, e)
+        total += red[0]
+    err = float((total / COMPRESS_STEPS - g[0]).abs().max())
+    assert err <= COMPRESS_TOL, f"error feedback mean off by {err}"
+    log(f"8c: quantize_roundtrip on the card equals the CPU path bit for "
+        f"bit on {len(grads)} gradient leaves of 8a's step (their first "
+        f"{COMPRESS_PREFIX} values: {n} in all); "
+        f"{COMPRESS_STEPS} compressed reductions over the one-rank 'pod' "
+        f"group average to the gradient within {err} (limit "
+        f"{COMPRESS_TOL}) {card}")
+
+
+def start_dryrun(out: str) -> list:
+    """Phase 8d's cells, each traced by ``python -m repro_torch.launch.
+    dryrun`` in a process of its own on this host (niced, one thread,
+    no card visible), so that they run while the card takes phases
+    5-8c: a list of (arch, shape, start time, process)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", out],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        os.setpriority(os.PRIO_PROCESS, proc.pid, 10)
+        procs.append((arch, shape, time.perf_counter(), proc))
+    return procs
+
+
+def dryrun_phase(procs: list, out: str) -> None:
+    """Phase 8d: two cells of the dry-run on the single 16 x 16 mesh,
+    traced on this host over a fake process group (no card) by the
+    processes ``start_dryrun`` started: their tables' rows and seconds.
+    Model estimates from the H100 data sheet's constants, not
+    measurements."""
+    from repro_torch.analysis.report import (dryrun_table, load,
+                                             roofline_table)
+    t0 = time.perf_counter()
+    for arch, shape, start, proc in procs:
+        text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        assert proc.returncode == 0, \
+            f"8d: dry-run {arch} {shape} exited {proc.returncode}:\n{text}"
+        log(f"8d: dry-run {arch} {shape} done within "
+            f"{time.perf_counter() - start:.3f} s of its start")
+    log(f"8d: waited {time.perf_counter() - t0:.3f} s for the dry-run "
+        "at phase 8")
+    rows = load(out)
+    assert sorted((r["arch"], r["shape"]) for r in rows) \
+        == sorted(DRYRUN_CELLS), rows
+    for res in rows:
+        mem = res["memory_per_device"]
+        log(f"8d: dry-run {res['arch']} {res['shape']} on the 16 x 16 mesh "
+            f"(fake process group of 256, host only): placement "
+            f"{res['lower_s']} s, trace {res['compile_s']} s; rank 0 "
+            f"holds {mem['argument_bytes']} B of arguments, peak "
+            f"{mem['temp_bytes']} B more; fits 80 GB: {res['fits_80g']}")
+    log("8d: model estimates from the H100 SXM data sheet (989 TFLOP/s "
+        "bf16, 3.35 TB/s HBM, 450 GB/s NVLink a direction), not "
+        "measurements:\n" + dryrun_table(rows) + "\n"
+        + roofline_table(rows))
+
+
+def mesh_phase(records: list, seed: int, card: str, dryrun: list,
+               dryrun_out: str) -> None:
+    """Phase 8: the sharded step on a one-rank NCCL mesh (8a), gradient
+    compression on the card (8c) and the dry-run on the host (8d, its
+    processes started by ``start_dryrun``).  Two
+    ranks on the one card (8b) are not run: NCCL refuses two ranks on
+    one GPU, and over gloo the functional collectives DTensor calls on
+    CUDA tensors crash (``PERF.md``).  The kernels' records gain the
+    mesh path's launches."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    mesh = one_rank_mesh()
+    try:
+        launches, grads = sharded_train_check(mesh, seed, card)
+        for k, v in sharded_moe_prefill(mesh, seed, card).items():
+            launches[k] += v
+        compress_checks(mesh, grads, card)
+    finally:
+        dist.destroy_process_group()
+    del grads
+    free()
+    dryrun_phase(dryrun, dryrun_out)
+    for rec in records:
+        n = launches.get(rec["name"], 0)
+        if n:
+            rec["mesh_launches"] = n
+            rec["launches"] += n
+    log(f"phase 8: {time.perf_counter() - t0:.3f} s; mesh launches "
+        f"{json.dumps(launches)} {card}")
+
+
+def trace_phase(eng, batches, card: str) -> dict:
+    """Phase 8e (on phase 2's store, after its lookups): three lookup
+    batches under the tracer, its Chrome trace exported and read back
+    through ``analysis.report``; ``cascade_sm90`` launches per lookup
+    from the trace equal the kernel counters'."""
+    from repro_torch import obs
+    from repro_torch.analysis.report import (load_trace, trace_report,
+                                             trace_tables)
+    from repro_torch.kernels import native
+    kc0 = eng.kernel_counters
+    native.reset_launches()
+    with obs.enabled() as tr:
+        lookups(eng, batches[:TRACE_BATCHES])
+    kc1 = eng.kernel_counters
+    launched = native.LAUNCHES["cascade_sm90"]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        tr.export_chrome(path)
+        rep = trace_report(load_trace(path))
+    calls = kc1.cascade_calls - kc0.cascade_calls
+    n = TRACE_BATCHES * LOOKUP_BATCH
+    assert rep["lookups"] == n, (rep["lookups"], n)
+    assert rep["kernel_launches"] == calls == launched, \
+        (rep["kernel_launches"], calls, launched)
+    shards = {s: (round(r["busy_us"]), round(r["stall_us"]))
+              for s, r in rep["shards"].items()}
+    log(f"8e: trace of {TRACE_BATCHES} lookup batches: wall "
+        f"{rep['wall_us']:.1f} us, perfect-overlap bound "
+        f"{rep['modeled_us']:.1f} us, gap {rep['gap_us']:.1f} us; per "
+        f"shard (busy us, stall us) {shards}; {rep['kernel_launches']} "
+        f"kernel spans / {rep['lookups']} lookups = "
+        f"{rep['launches_per_lookup']:.6f} launches a lookup, equal to "
+        f"the kernel counters' {calls} cascade calls and {launched} "
+        f"cascade_sm90 launches {card}\n{trace_tables(rep)}")
+    return {"cascade_sm90": launched}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3557,12 +3889,21 @@ def main(argv=None) -> int:
         f"({len(native.KERNELS)} sources)")
 
     records = store_phases(card)
-    launches = model_phase(args.seed, card)
-    moe = moe_phase(args.seed, card)
-    launches = {k: v + moe.get(k, 0) for k, v in launches.items()}
-    workload_phase(args.seed)
-    records += model_kernel_checks(launches, args.seed, card)
-    train_phase(records, args.seed, card)
+    with tempfile.TemporaryDirectory() as dryrun_out:
+        dryrun = start_dryrun(dryrun_out)
+        try:
+            launches = model_phase(args.seed, card)
+            moe = moe_phase(args.seed, card)
+            launches = {k: v + moe.get(k, 0) for k, v in launches.items()}
+            workload_phase(args.seed)
+            records += model_kernel_checks(launches, args.seed, card)
+            train_phase(records, args.seed, card)
+            mesh_phase(records, args.seed, card, dryrun, dryrun_out)
+        finally:
+            for *_, proc in dryrun:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
     log(smi)
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,9 @@ Guarantees used by the train loop:
     checkpoint;
   * async — saves run on a writer thread off the step path (arrays are
     copied to the host, never viewed, before ``save`` returns);
-  * keep-last-k — bounded disk.
+  * keep-last-k — bounded disk;
+  * elastic restore — ``restore(..., shardings=)`` places every leaf as
+    a DTensor on any mesh, whatever mesh saved it.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 from ..carry import nest, tree_order
 from ..durable.atomic import (atomic_publish_dir, clear_stale_tmp,
                               keep_last_k, list_versions, versioned_name)
+from ..models.params import distribute_tree
 
 _PREFIX = "step_"
 
@@ -137,12 +140,14 @@ class CheckpointManager:
         steps = self.list_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: dict, step: int | None = None
-                ) -> tuple[dict, dict]:
+    def restore(self, template: dict, step: int | None = None,
+                shardings=None) -> tuple[dict, dict]:
         """Restore into the structure of ``template`` (a nested dict
         whose leaves give shape and type: tensors, "meta" ones too, or
         numpy arrays); returns (state, extra), each leaf a CPU tensor
-        or a numpy array like its template's."""
+        or a numpy array like its template's.  ``shardings`` (a tree of
+        ``NamedSharding`` of the template's structure) re-shards each
+        leaf onto its mesh as a DTensor (elastic: any mesh)."""
         if step is None:
             step = self.latest_step()
             assert step is not None, "no checkpoint found"
@@ -158,4 +163,7 @@ class CheckpointManager:
             assert tuple(arr.shape) == tuple(tmpl.shape), \
                 f"{key}: {arr.shape} != {tuple(tmpl.shape)}"
             flat[key] = _from_host(arr, tmpl)
-        return nest(flat), manifest["extra"]
+        state = nest(flat)
+        if shardings is not None:
+            state = distribute_tree(state, shardings)
+        return state, manifest["extra"]

@@ -14,6 +14,12 @@ On a CUDA tensor the launch goes through ``FlashAttention``, whose
 backward is the plain version's vector-Jacobian product, so a loss
 built on the kernel's output has the gradient the reference trains
 with.
+
+DTensor operands (a model sharded on a mesh) run on every rank's local
+shards (``sharded.local_apply``: sequence and head_dim replicated,
+batch and heads as sharded, K/V heads selected where the query heads'
+shard needs them) through ``FlashAttention``: a CUDA mesh launches the
+kernel there or raises, a CPU mesh runs the plain version.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import ctypes
 import torch
 
 from ...obs import span
-from .. import native
+from .. import native, sharded
 from .ref import attention_ref
 
 MAX_HEAD_DIM = 256
@@ -38,10 +44,25 @@ def flash_attention(q, k, v, *, scale=None, causal: bool = True,
     """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D) in q's
     type."""
     with span("kernel.flash_attention", n=int(q.numel())):
+        if sharded.is_dtensor(q):
+            launch = _plain if q.device.type == "cpu" else _launch
+            heads = sharded.Role(heads=2)
+            kv = sharded.Role(heads=2, group=q.shape[2] // k.shape[2])
+            return sharded.local_apply(
+                lambda *a: FlashAttention.apply(launch, scale, causal,
+                                                window, *a),
+                (q, k, v), (heads, kv, kv), (heads,))[0]
         if q.device.type == "cpu":
             return attention_ref(q, k, v, scale=scale, causal=causal,
                                  window=window)
         return FlashAttention.apply(_launch, scale, causal, window, q, k, v)
+
+
+def _plain(q, k, v, scale, causal, window):
+    """The plain version as a launcher: a CPU mesh's shards go through
+    ``FlashAttention`` as a card's do, so a traced step holds what the
+    card's holds (the inputs; the backward recomputes)."""
+    return attention_ref(q, k, v, scale=scale, causal=causal, window=window)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -17,6 +17,12 @@ applies ``exp(dac)`` after the head-free product with C.
 On a CUDA tensor the launch goes through ``SSDChunks``, whose backward
 is the plain version's vector-Jacobian product, so a loss built on the
 kernel's outputs has the gradient the reference trains with.
+
+DTensor operands (a model sharded on a mesh) run on every rank's local
+shards (``sharded.local_apply``: sequence, chunk, p and n replicated,
+batch and heads as sharded, B and C whole on every rank of a head
+shard) through ``SSDChunks``: a CUDA mesh launches the kernel there or
+raises, a CPU mesh runs the plain version.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import ctypes
 import torch
 
 from ...obs import span
-from .. import native
+from .. import native, sharded
 from .ref import ssd_chunks_ref
 
 SMEM_BYTES = 232_448  # shared memory an H100 block may use
@@ -37,9 +43,23 @@ def ssd_chunks(x, dac, dt, B, C, *, chunk: int):
     """Intra-chunk outputs and end-of-chunk states; shapes as in
     ``ssd_chunks_ref``."""
     with span("kernel.ssd", n=int(x.numel())):
+        if sharded.is_dtensor(x):
+            launch = _plain if x.device.type == "cpu" else _launch
+            heads, whole = sharded.Role(heads=2), sharded.Role()
+            return sharded.local_apply(
+                lambda *a: SSDChunks.apply(launch, chunk, *a),
+                (x, dac, dt, B, C), (heads, heads, heads, whole, whole),
+                (heads, heads))
         if x.device.type == "cpu":
             return ssd_chunks_ref(x, dac, dt, B, C, chunk=chunk)
         return SSDChunks.apply(_launch, chunk, x, dac, dt, B, C)
+
+
+def _plain(x, dac, dt, B, C, chunk):
+    """The plain version as a launcher: a CPU mesh's shards go through
+    ``SSDChunks`` as a card's do, so a traced step holds what the card's
+    holds (the inputs; the backward recomputes)."""
+    return ssd_chunks_ref(x, dac, dt, B, C, chunk=chunk)
 
 
 class SSDChunks(torch.autograd.Function):
@@ -174,6 +194,33 @@ def _launch_simt(x, dac, dt, B, C, chunk):
     return y, states
 
 
+def _dac(dt, A, chunk: int):
+    """In-chunk cumulative sums of dt * A: (b, nc, chunk, h) f32."""
+    b, s, h = dt.shape
+    da = dt.float() * A.float()[None, None, :]
+    return torch.cumsum(da.reshape(b, s // chunk, chunk, h), dim=2)
+
+
+def _inter_chunk(states, dac, C):
+    """The inter-chunk recurrence: (y_inter (b, s, h, p), the final state
+    (b, h, n, p)), f32, from the chunks' end states (b, nc, h, n, p),
+    the in-chunk cumsums dac (b, nc, chunk, h) and C (b, s, n)."""
+    b, nc, h, n, p = states.shape
+    chunk = dac.shape[2]
+    chunk_decay = torch.exp(dac[:, :, -1, :])  # (b, nc, h)
+    hprevs = torch.empty_like(states)  # state entering each chunk
+    state = torch.zeros((b, h, n, p), dtype=torch.float32,
+                        device=states.device)
+    for c in range(nc):
+        hprevs[:, c] = state
+        state = state * chunk_decay[:, c, :, None, None] + states[:, c]
+    # y_inter[t] = exp(dac_t) * (C_t @ h_prev), per head.
+    y_inter = torch.einsum("bctn,bchnp->bcthp",
+                           C.reshape(b, nc, chunk, n).float(), hprevs)
+    y_inter = y_inter * torch.exp(dac)[..., None]
+    return y_inter.reshape(b, nc * chunk, h, p), state
+
+
 def ssd_chunked_scan(x, dt, A, B, C, *, chunk: int = 64,
                      return_final: bool = False):
     """x: (b, s, h, p); dt: (b, s, h); A: (h,); B/C: (b, s, n); s a
@@ -185,23 +232,27 @@ def ssd_chunked_scan(x, dt, A, B, C, *, chunk: int = 64,
     n = B.shape[-1]
     assert s % chunk == 0
     nc = s // chunk
-    da = dt.float() * A.float()[None, None, :]
-    dac = torch.cumsum(da.reshape(b, nc, chunk, h), dim=2)
+    if sharded.is_dtensor(dt):
+        # The in-chunk cumsum on each rank's (batch, head) shard.
+        dac, = sharded.local_apply(
+            lambda dt, A: _dac(dt, A, chunk), (dt, A),
+            (sharded.Role(heads=2), sharded.Role(batch=None, heads=0)),
+            (sharded.Role(heads=3),))
+    else:
+        dac = _dac(dt, A, chunk)
     y_intra, states = ssd_chunks(x.contiguous(), dac.reshape(b, s, h),
                                  dt.float().contiguous(), B.contiguous(),
                                  C.contiguous(), chunk=chunk)
-    chunk_decay = torch.exp(dac[:, :, -1, :])  # (b, nc, h)
-    hprevs = torch.empty_like(states)  # state entering each chunk
-    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
-    for c in range(nc):
-        hprevs[:, c] = state
-        state = state * chunk_decay[:, c, :, None, None] + states[:, c]
-    # y_inter[t] = exp(dac_t) * (C_t @ h_prev), per head.
-    y_inter = torch.einsum("bctn,bchnp->bcthp",
-                           C.reshape(b, nc, chunk, n).float(), hprevs)
-    y_inter = y_inter * torch.exp(dac)[..., None]
-    y = (y_intra.reshape(b, nc, chunk, h, p) + y_inter).reshape(
-        b, s, h, p).to(x.dtype)
+    if sharded.is_dtensor(states):
+        # The recurrence on each rank's (batch, head) shard.
+        y_inter, state = sharded.local_apply(
+            _inter_chunk, (states, dac, C), (
+                sharded.Role(heads=2), sharded.Role(heads=3),
+                sharded.Role()),
+            (sharded.Role(heads=2), sharded.Role(heads=1)))
+    else:
+        y_inter, state = _inter_chunk(states, dac, C)
+    y = (y_intra + y_inter).to(x.dtype)
     if return_final:
         return y, state
     return y

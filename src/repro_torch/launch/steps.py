@@ -2,19 +2,27 @@
 (a port of ``repro.launch.steps``).
 
 ``input_specs`` gives every model input as a tensor on the "meta"
-device: shape and type, no memory.  The reference's sharding helpers
-(``adjust_rules_for_shape``, ``batch_shardings``,
-``opt_state_shardings``) need a mesh and wait for the multi-card slice.
+device: shape and type, no memory; ``batch_shardings`` and
+``opt_state_shardings`` give the matching ``NamedSharding`` trees on a
+DeviceMesh (``distribute_tree`` places a tree by them), and
+``adjust_rules_for_shape`` fits a model's rules to a (shape x mesh).
+The steps run on plain tensors or, with ``model.shard(mesh)``, on
+DTensors: the train step then reduces its gradient norm over the whole
+mesh and returns its metrics as plain tensors.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import Replicate
 
 from ..carry import param_leaves
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import Transformer
 from ..models.layers import cross_entropy_loss
+from ..models.params import ParamSpec, is_spec, tree_map
+from ..models.sharding import (NamedSharding, ShardingRules, is_dtensor,
+                               mesh_axes)
 from ..optim.optimizer import OptimizerConfig, make_optimizer
 
 
@@ -32,10 +40,33 @@ def serve_cache_len(cfg: ModelConfig, shape: ShapeConfig) -> tuple[int, bool]:
     return shape.seq_len, False
 
 
+def adjust_rules_for_shape(model: Transformer, shape: ShapeConfig,
+                           mesh) -> None:
+    """Divisibility-aware rule adjustment for a concrete (shape x mesh).
+
+    long_500k has global_batch=1: batch can't shard over ('pod','data').
+    Fall back to replicated batch and recover parallelism from the cache
+    sequence dim (context-parallel decode); 'data' is otherwise idle in
+    a batch-1 decode."""
+    sizes = dict(zip(mesh_axes(mesh), mesh.shape))
+    batch_axes = model.rules.rules.get("batch") or ()
+    shards = 1
+    for a in batch_axes:
+        shards *= sizes.get(a, 1)
+    if shards > 1 and shape.global_batch % shards != 0:
+        cache_seq = model.rules.rules.get("cache_seq") or ()
+        new_seq = tuple(a for a in ("data",) + tuple(cache_seq)
+                        if a in sizes)
+        model.rules = model.rules.with_overrides(
+            batch=None, cache_batch=None, cache_seq=new_seq or None)
+
+
 # ------------------------------------------------------------ input specs
-def input_specs(cfg: ModelConfig, shape: ShapeConfig,
-                model: Transformer) -> dict:
-    """"meta" tensors standing in for every input of a step."""
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, model: Transformer,
+                microbatch: int = 1) -> dict:
+    """"meta" tensors standing in for every input of a step
+    (``microbatch`` splits the train batch inside the step: the inputs
+    are the same)."""
     b, s = shape.global_batch, shape.seq_len
 
     def spec(shp, dtype):
@@ -59,6 +90,50 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig,
     return {"token": tok, "cache": model.init_cache(b, cache_len,
                                                      device="meta"),
             "pos": spec((), i32)}
+
+
+def batch_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                    rules: ShardingRules, model: Transformer):
+    """NamedShardings matching input_specs."""
+    ax = mesh_axes(mesh)
+    bspec = NamedSharding(mesh, rules.spec(("batch", None), ax))
+    bspec3 = NamedSharding(mesh, rules.spec(("batch", None, "embed"), ax))
+    key, tok = ("embeds", bspec3) if cfg.stub_frontend is not None \
+        else ("tokens", bspec)
+    if shape.kind == "train":
+        return {"labels": bspec, key: tok}
+    if shape.kind == "prefill":
+        return {key: tok}
+    cache_sh = {k: NamedSharding(mesh, rules.spec(axes, ax))
+                for k, axes in model.cache_logical_axes().items()}
+    return {"token": tok, "cache": cache_sh,
+            "pos": NamedSharding(mesh, ())}
+
+
+def opt_state_shardings(opt_name: str, specs, mesh, rules: ShardingRules):
+    """Optimizer state shards like its parameter (reduced dims dropped);
+    ``specs`` is the stacked spec tree (``model.param_specs()``)."""
+    ax = mesh_axes(mesh)
+    scalar = NamedSharding(mesh, ())
+    if opt_name == "adamw":
+        like_param = tree_map(
+            lambda s: NamedSharding(mesh, rules.spec(s.axes, ax)), specs)
+        return {"mu": like_param, "nu": like_param, "step": scalar}
+
+    def factored(s: ParamSpec):
+        if len(s.shape) >= 2:
+            return {"vr": NamedSharding(mesh, rules.spec(s.axes[:-1], ax)),
+                    "vc": NamedSharding(
+                        mesh, rules.spec(s.axes[:-2] + s.axes[-1:], ax))}
+        return {"v": NamedSharding(mesh, rules.spec(s.axes, ax))}
+
+    return {"f": tree_map(factored, specs, is_leaf=is_spec),
+            "step": scalar}
+
+
+def _full(t):
+    """A DTensor metric as the plain tensor of its value."""
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 # ------------------------------------------------------------------ steps
@@ -86,8 +161,12 @@ def make_train_step(model: Transformer, opt_cfg: OptimizerConfig,
         reached it, as autodiff gives) in its ``.grad``."""
         for p in params:
             p.grad = None
-        loss = loss_fn(data)
-        loss.backward()
+        with model._mesh_context():
+            loss = loss_fn(data)
+            if is_dtensor(loss):  # a Partial mean: backward from its sum
+                loss = loss.redistribute(loss.device_mesh, [
+                    Replicate()] * loss.device_mesh.ndim)
+            loss.backward()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -95,8 +174,8 @@ def make_train_step(model: Transformer, opt_cfg: OptimizerConfig,
 
     def train_step(opt_state, batch):
         if microbatch > 1:
-            gsum = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for p in params]
+            gsum = [torch.zeros_like(p, dtype=torch.float32)
+                    for p in params]
             lsum = 0.0
             for i in range(microbatch):
                 data = {k: v[i * len(v) // microbatch:
@@ -113,10 +192,12 @@ def make_train_step(model: Transformer, opt_cfg: OptimizerConfig,
             flat = [p.grad for p in params]
         it = iter(flat)
         grads = [[next(it) for _ in leaf.parts] for leaf in leaves]
-        opt_state, info = update_fn(leaves, grads, opt_state)
+        with model._mesh_context():
+            opt_state, info = update_fn(leaves, grads, opt_state)
         for p in params:
             p.grad = None
-        return opt_state, {"loss": loss, **info}
+        metrics = {"loss": loss, **info}
+        return opt_state, {k: _full(v) for k, v in metrics.items()}
 
     return train_step
 

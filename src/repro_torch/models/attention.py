@@ -11,8 +11,10 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import sharded
 from ..kernels.flash_attention.ops import flash_attention
 from .layers import rope
+from .sharding import ShardingRules, constrain, is_dtensor
 
 
 def masked_attention(q, k, v, *, window: int, q_offset: int, lengths=None):
@@ -52,8 +54,17 @@ def banded_local_attention(q, k, v, *, window: int):
 
     Queries are blocked by W; block i attends key blocks [i-1, i]
     (sufficient for window <= W), so scores are (S x 2W).  S % window
-    == 0 and S >= 2 * window (callers pad).
+    == 0 and S >= 2 * window (callers pad).  DTensors first take the
+    flash kernel's layout (``sharded.local_apply``: only batch and heads
+    stay sharded) and compute on each rank's shards, so blocking the
+    sequence never splits a sharded dim.
     """
+    if is_dtensor(q):
+        g = q.shape[2] // k.shape[2]
+        heads = sharded.Role(heads=2)
+        return sharded.local_apply(
+            lambda *a: banded_local_attention(*a, window=window), (q, k, v),
+            (heads,) + 2 * (sharded.Role(heads=2, group=g),), (heads,))[0]
     b, s, hq, d = q.shape
     _, _, hkv, _ = k.shape
     w = window
@@ -85,9 +96,39 @@ def banded_local_attention(q, k, v, *, window: int):
     return o.reshape(b, s, hq, d).to(q.dtype)
 
 
+def _head_dim_sharded(w, dim: int) -> bool:
+    return is_dtensor(w) and any(getattr(p, "dim", None) == dim
+                                 for p in w.placements)
+
+
+def project_in(x, w, heads: str, rules: ShardingRules):
+    """x (B, S, D) @ w (D, H, K) -> (B, S, H, K), H under the logical
+    axis ``heads``.  On DTensors the product's merged dim first takes
+    the split of its outer part (a split DTensor picks for it may not
+    divide into heads), and a ``w`` with K sharded is merged as (K, H),
+    sharded dim first (merging (H, K) would stride the shard)."""
+    b, s, dm = x.shape
+    if _head_dim_sharded(w, 2):
+        y = constrain(x @ w.transpose(1, 2).reshape(dm, -1),
+                      ("batch", None, "head_dim"), rules)
+        return y.reshape(b, s, w.shape[2], w.shape[1]).transpose(2, 3)
+    y = constrain(x @ w.reshape(dm, -1), ("batch", None, heads), rules)
+    return y.reshape(b, s, *w.shape[1:])
+
+
+def project_out(o, w):
+    """o (B, S, H, K) @ w (H, K, D) -> (B, S, D), merging (K, H) where a
+    DTensor ``w`` shards K, as ``project_in`` does."""
+    b, s = o.shape[:2]
+    if _head_dim_sharded(w, 1):
+        return o.transpose(2, 3).reshape(b, s, -1) @ \
+            w.transpose(0, 1).reshape(-1, w.shape[-1])
+    return o.reshape(b, s, -1) @ w.reshape(-1, w.shape[-1])
+
+
 def attention_block(x, wq, wk, wv, wo, *, positions, window: int,
-                    rope_fraction, cache=None, cache_pos=None,
-                    ring: bool = False,
+                    rope_fraction, rules: ShardingRules, cache=None,
+                    cache_pos=None, ring: bool = False,
                     static_local_window: int | None = None):
     """Full attention sublayer (projections + rope + attention + out).
 
@@ -99,9 +140,11 @@ def attention_block(x, wq, wk, wv, wo, *, positions, window: int,
     prefill, or the cache dict for decode).
     """
     b, s, dm = x.shape
-    q = (x @ wq.reshape(dm, -1)).reshape(b, s, *wq.shape[1:])
-    k = (x @ wk.reshape(dm, -1)).reshape(b, s, *wk.shape[1:])
-    v = (x @ wv.reshape(dm, -1)).reshape(b, s, *wv.shape[1:])
+    q = project_in(x, wq, "q_heads", rules)
+    k, v = (project_in(x, w, "kv_heads", rules) for w in (wk, wv))
+    q = constrain(q, ("batch", None, "q_heads", "head_dim"), rules)
+    k = constrain(k, ("batch", None, "kv_heads", "head_dim"), rules)
+    v = constrain(v, ("batch", None, "kv_heads", "head_dim"), rules)
     q = rope(q, positions, fraction=rope_fraction)
     k = rope(k, positions, fraction=rope_fraction)
 
@@ -133,10 +176,13 @@ def attention_block(x, wq, wk, wv, wo, *, positions, window: int,
         write_pos = min(max(write_pos, 0), cache_len - s)
         cache["k"][:, write_pos:write_pos + s] = k.to(cache["k"].dtype)
         cache["v"][:, write_pos:write_pos + s] = v.to(cache["v"].dtype)
+        axes = ("cache_batch", "cache_seq", "cache_heads", "cache_dim")
+        ck = constrain(cache["k"], axes, rules)
+        cv = constrain(cache["v"], axes, rules)
         lengths = torch.full((b,), length, dtype=torch.int32,
                              device=x.device)
-        o = masked_attention(q, cache["k"], cache["v"], window=eff_window,
+        o = masked_attention(q, ck, cv, window=eff_window,
                              q_offset=q_offset, lengths=lengths)
         new_kv = cache
-    out = o.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    out = project_out(o, wo)
     return out, new_kv

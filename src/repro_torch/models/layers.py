@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels.sharded import is_dtensor
+
 
 def rmsnorm(x, w, eps: float = 1e-6):
     dt = x.dtype
@@ -50,11 +52,17 @@ def swiglu(x, w_gate, w_up, w_down):
 
 def cross_entropy_loss(logits, labels, *, z_loss: float = 0.0):
     """Mean CE over tokens; logits (..., V) in any type, f32 math.  The
-    label's logit is gathered (the reference selects it with an
-    iota-compare, which shards over vocab; the value is the same)."""
+    label's logit is gathered; DTensor logits select it with the
+    reference's iota-compare, which stays sharded over vocab (a gather
+    on a sharded dim would all-gather the logits first)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if is_dtensor(logits):
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        ll = torch.where(iota == labels.long()[..., None], logits,
+                         0.0).sum(dim=-1)
+    else:
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     loss = (lse - ll).mean()
     if z_loss:
         loss = loss + z_loss * (lse ** 2).mean()

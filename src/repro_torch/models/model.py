@@ -21,16 +21,31 @@ Entry points:
 
 Parameters are frozen (``requires_grad=False``) unless
 ``trainable(True)`` is called, as a train step does; prefill and
-decode run without gradients either way.  With ``cfg.remat == "full"``
-``forward_train`` recomputes each layer (dense, SSM) or each group and
-tail layer (hybrid) in the backward, as the JAX package's
-``_maybe_remat`` does, so every kernel launches twice a backward pass.
+decode run without gradients either way.
+
+With ``cfg.remat == "full"`` ``forward_train`` recomputes each layer
+(dense, SSM) or each group and tail layer (hybrid) in the backward, as
+the JAX package's ``_maybe_remat`` does, so every kernel launches twice
+a backward pass.
+
+On a mesh: ``rules`` (resolved per arch as the JAX package does) map
+each logical axis to mesh axes; ``shard(mesh)`` turns every parameter
+into a DTensor placed by ``tree_shardings`` (the reference's
+``in_shardings=params_sh``), and the entry points then take DTensor
+inputs (``steps.batch_shardings``) and pin activations with the
+reference's ``constrain`` calls.  Plain tensors an entry point makes
+(positions, masks, buffers) are replicated on the mesh.
+``device="meta"`` builds the full-size model with no memory, for the
+dry-run.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -39,7 +54,9 @@ from ..device import resolve_device
 from .attention import attention_block
 from .layers import rmsnorm, swiglu
 from .moe import moe_ffn
-from .params import ParamSpec, init_params
+from .params import ParamSpec, init_params, tree_abstract, tree_map
+from .sharding import (ShardingRules, constrain, is_dtensor,
+                       replicate_plain_tensors, sharding_for)
 from .ssm import mamba2_block
 
 P = ParamSpec
@@ -174,21 +191,131 @@ def param_specs(c: ModelConfig) -> dict:
     return specs
 
 
+def _stacked(tree, shape: tuple, axes: tuple):
+    return tree_map(lambda s: ParamSpec(shape + s.shape, axes + s.axes,
+                                        s.init, s.scale), tree)
+
+
+def stacked_param_specs(c: ModelConfig) -> dict:
+    """The JAX package's spec tree (``Transformer.param_specs`` there):
+    each stack of layer specs as one spec with the leading ``layers``
+    (L,), ``groups``/``stack`` (G, per) or tail ``layers`` (T,) axes,
+    keyed by ``carry.param_leaves``' paths.  The optimizer state and
+    checkpoints have this layout."""
+    specs = param_specs(c)
+    out = {k: v for k, v in specs.items()
+           if k not in ("layers", "groups", "tail")}
+    if "layers" in specs:
+        out["layers"] = _stacked(specs["layers"][0], (c.n_layers,),
+                                 ("layers",))
+    if "groups" in specs:
+        g = specs["groups"]
+        out["groups"] = {"mamba": _stacked(g[0][0], (len(g), len(g[0])),
+                                           ("groups", "stack"))}
+    if "tail" in specs:
+        out["tail"] = {"mamba": _stacked(specs["tail"][0],
+                                         (len(specs["tail"]),),
+                                         ("layers",))}
+    return out
+
+
+def spec_paths(tree, prefix: str = "") -> list:
+    """(tree path, spec) of every spec of a nested dict."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += spec_paths(v, f"{prefix}{k}/")
+        else:
+            out.append((prefix + k, v))
+    return out
+
+
+def resolve_rules(cfg: ModelConfig, rules: ShardingRules | None,
+                  model_par: int) -> ShardingRules:
+    """Head sharding per arch, as the JAX package's ``Transformer``
+    resolves it: shard q heads when ``model_par``-divisible, else shard
+    head_dim (gemma3/paligemma: 4-8 heads of dim 256), else replicate
+    (h2o/zamba: 120/112-dim heads); then the config's overrides."""
+    rules = rules or ShardingRules()
+    m = model_par
+    if cfg.n_heads and cfg.n_heads % m == 0:
+        q_rule, hd_rule = "model", None
+    elif cfg.head_dim_ and cfg.head_dim_ % m == 0:
+        q_rule, hd_rule = None, "model"
+    else:
+        q_rule, hd_rule = None, None
+    kv_rule = "model" if (cfg.n_kv_heads and cfg.n_kv_heads % m == 0
+                          and hd_rule is None) else None
+    rules = rules.with_overrides(q_heads=q_rule, kv_heads=kv_rule,
+                                 head_dim=hd_rule)
+    if cfg.sharding_overrides:
+        rules = rules.with_overrides(**cfg.sharding_overrides)
+    return rules
+
+
 class Transformer(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device: str = "cuda",
-                 seed: int = 0):
+    # Tensor-parallel width of the production meshes ('model' axis).
+    MODEL_PAR = 16
+
+    def __init__(self, cfg: ModelConfig, rules: ShardingRules | None = None,
+                 *, device: str = "cuda", seed: int = 0):
         super().__init__()
         if cfg.family not in _DENSE + ("ssm", "hybrid"):
             raise ValueError(cfg.family)
         self.cfg = cfg
-        device = resolve_device(device)
+        self.rules = resolve_rules(cfg, rules, self.MODEL_PAR)
         self.dtype = getattr(torch, cfg.dtype)
         # Static window for banded local attention (prefill): uniform-SWA
         # archs use cfg.window; local:global stacks the local window
         # (global layers take the full path).
         self._static_window = (cfg.local_window if cfg.local_global
                                else cfg.window)
-        self.params = ParamTree(self._draw(seed, device))
+        if device == "meta":
+            tree = tree_abstract(param_specs(cfg), self.dtype)
+        else:
+            tree = self._draw(seed, resolve_device(device))
+        self.params = ParamTree(tree)
+
+    def param_specs(self) -> dict:
+        """The JAX package's (stacked) spec tree of this model."""
+        return stacked_param_specs(self.cfg)
+
+    @property
+    def mesh(self):
+        """The DeviceMesh the parameters lie on, or None (plain)."""
+        p = self.params["final_norm"]
+        return p.device_mesh if is_dtensor(p) else None
+
+    def shard(self, mesh) -> "Transformer":
+        """Replace every parameter by a DTensor on ``mesh`` placed by
+        ``tree_shardings`` of the stacked specs under ``self.rules``: a
+        layer's tensor takes its leaf's placements less the leading
+        layer axes, which the rules must leave replicated (the port
+        keeps one tensor a layer)."""
+        from ..carry import param_leaves
+        specs = dict(spec_paths(self.param_specs()))
+        owner = {id(p): (m, n) for m in self.params.modules()
+                 for n, p in m._parameters.items()}
+        for leaf in param_leaves(self):
+            axes = specs[leaf.path].axes
+            n = len(leaf.lead)
+            lead = sharding_for(axes, mesh, self.rules).spec[:n]
+            if any(lead):
+                raise ValueError(f"{leaf.path}: the rules shard a layer "
+                                 f"axis ({lead}); layers stay replicated")
+            sh = sharding_for(axes[n:], mesh, self.rules)
+            for part in leaf.parts:
+                module, name = owner[id(part)]
+                module._parameters[name] = nn.Parameter(
+                    sh.distribute(part.detach()),
+                    requires_grad=part.requires_grad)
+        return self
+
+    def _mesh_context(self):
+        """Plain tensors made inside an entry point are replicated on
+        the mesh (a no-op without one)."""
+        return replicate_plain_tensors() if self.mesh is not None \
+            else contextlib.nullcontext()
 
     def _draw(self, seed: int, device) -> dict:
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -251,8 +378,8 @@ class Transformer(nn.Module):
         return attention_block(
             rmsnorm(x, ap["ln"], self.cfg.norm_eps), ap["wq"], ap["wk"],
             ap["wv"], ap["wo"], positions=positions, window=window,
-            rope_fraction=self.cfg.rope_fraction, cache=cache,
-            cache_pos=cache_pos, ring=ring,
+            rope_fraction=self.cfg.rope_fraction, rules=self.rules,
+            cache=cache, cache_pos=cache_pos, ring=ring,
             static_local_window=static_local_window)
 
     def _mlp(self, x, mp):
@@ -265,20 +392,24 @@ class Transformer(nn.Module):
                                     cache_pos, ring, self._static_window)
         x = x + h
         if self.cfg.moe is None:
-            return self._mlp(x, lp["mlp"]), new_kv
-        mp, m = lp["moe"], self.cfg.moe
-        return x + moe_ffn(rmsnorm(x, mp["ln"], self.cfg.norm_eps),
-                           mp["router"], mp["w_gate"], mp["w_up"],
-                           mp["w_down"], top_k=m.top_k,
-                           capacity_factor=m.capacity_factor,
-                           shared=mp["shared"] if "shared" in mp
-                           else None), new_kv
+            x = self._mlp(x, lp["mlp"])
+        else:
+            mp, m = lp["moe"], self.cfg.moe
+            x = x + moe_ffn(rmsnorm(x, mp["ln"], self.cfg.norm_eps),
+                            mp["router"], mp["w_gate"], mp["w_up"],
+                            mp["w_down"], top_k=m.top_k,
+                            capacity_factor=m.capacity_factor,
+                            rules=self.rules,
+                            shared=mp["shared"] if "shared" in mp
+                            else None)
+        return constrain(x, ("batch", "act_seq", "embed"), self.rules), new_kv
 
     def _block_mamba(self, x, lp, state=None, return_state=False):
         y, new_state = mamba2_block(rmsnorm(x, lp["ln"], self.cfg.norm_eps),
-                                    lp, self.cfg, state=state,
+                                    lp, self.cfg, self.rules, state=state,
                                     return_state=return_state)
-        return x + y, new_state
+        return constrain(x + y, ("batch", "act_seq", "embed"),
+                         self.rules), new_state
 
     def _shared(self, x, positions, cache=None, cache_pos=None, ring=False):
         """zamba2's shared attention + MLP block."""
@@ -292,15 +423,25 @@ class Transformer(nn.Module):
         c = self.cfg
         if c.stub_frontend is not None:
             assert embeds is not None, "stub frontend takes embeddings"
-            return embeds.to(device=self.device, dtype=self.dtype)
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = self.params["embed"][tokens].to(self.dtype)
-        # The scale rounds to the model's type first, as in JAX.
-        return x * float(torch.tensor(c.d_model ** 0.5, dtype=self.dtype))
+            x = embeds.to(dtype=self.dtype) if is_dtensor(embeds) else \
+                embeds.to(device=self.device, dtype=self.dtype)
+        else:
+            if not is_dtensor(tokens):
+                tokens = torch.as_tensor(tokens, device=self.device)
+            # A vocab-sharded table is gathered first: a gather from its
+            # shards is a mask-partial sum, whose gradient torch 2.11's
+            # DTensor cannot redistribute.
+            table = constrain(self.params["embed"], (None, "embed"),
+                              self.rules)
+            x = F.embedding(tokens.long(), table).to(self.dtype)
+            # The scale rounds to the model's type first, as in JAX.
+            x = x * float(torch.tensor(c.d_model ** 0.5, dtype=self.dtype))
+        return constrain(x, ("batch", "act_seq", "embed"), self.rules)
 
     def _head_out(self, x):
         x = rmsnorm(x, self.params["final_norm"], self.cfg.norm_eps)
-        return x @ self.params["lm_head"]
+        return constrain(x @ self.params["lm_head"], ("batch", None, "vocab"),
+                         self.rules)
 
     def _positions(self, b: int, s: int, start: int = 0):
         return (torch.arange(s, dtype=torch.int32, device=self.device)
@@ -311,13 +452,14 @@ class Transformer(nn.Module):
         """Teacher-forced forward -> logits (B, S, V); differentiable,
         each remat unit (``_train_units``) recomputed in the backward
         under ``cfg.remat == "full"``."""
-        x = self._embed_in(tokens, embeds)
-        positions = self._positions(x.shape[0], x.shape[1])
-        remat = self.cfg.remat == "full"
-        for unit in self._train_units(positions):
-            x = checkpoint(unit, x, use_reentrant=False) if remat \
-                else unit(x)
-        return self._head_out(x)
+        with self._mesh_context():
+            x = self._embed_in(tokens, embeds)
+            positions = self._positions(x.shape[0], x.shape[1])
+            remat = self.cfg.remat == "full"
+            for unit in self._train_units(positions):
+                x = checkpoint(unit, x, use_reentrant=False) if remat \
+                    else unit(x)
+            return self._head_out(x)
 
     def _train_units(self, positions) -> list:
         """The stack as the JAX package's remat units: a layer (dense,
@@ -341,9 +483,10 @@ class Transformer(nn.Module):
     def prefill(self, tokens=None, embeds=None):
         """Forward + a KV/state cache sized to the input length; returns
         (last-position logits (B, 1, V), cache)."""
-        x = self._embed_in(tokens, embeds)
-        x, cache = self._stack(x)
-        return self._head_out(x[:, -1:]), cache
+        with self._mesh_context():
+            x = self._embed_in(tokens, embeds)
+            x, cache = self._stack(x)
+            return self._head_out(x[:, -1:]), cache
 
     def _stack(self, x):
         """Run every layer over the whole sequence; return the output
@@ -421,6 +564,24 @@ class Transformer(nn.Module):
             cache["tconv"] = zeros((tail,) + conv)
         return cache
 
+    def cache_logical_axes(self) -> dict:
+        """The logical axes of every ``init_cache`` leaf."""
+        c = self.cfg
+        kv = ("layers", "cache_batch", "cache_seq", "cache_heads",
+              "cache_dim")
+        if c.family in _DENSE:
+            return {"k": kv, "v": kv}
+        sh = ("layers", "cache_batch", "ssm_heads", None, None)
+        cv = ("layers", "cache_batch", None, "mlp")
+        if c.family == "ssm":
+            return {"h": sh, "conv": cv}
+        out = {"gh": ("groups",) + sh, "gconv": ("groups",) + cv,
+               "ak": ("groups",) + kv[1:], "av": ("groups",) + kv[1:]}
+        if _hybrid_split(c)[2]:
+            out["th"] = sh
+            out["tconv"] = cv
+        return out
+
     @torch.no_grad()
     def decode_step(self, token, cache: dict, pos: int, ring: bool = False):
         """One decode step. token: (B, 1) int (or (B, 1, D) embeds for
@@ -429,6 +590,10 @@ class Transformer(nn.Module):
         per step would double it) and returns (logits (B, 1, V),
         cache).  ``ring=True`` treats attention caches as circular window
         buffers (sliding-window long decode)."""
+        with self._mesh_context():
+            return self._decode(token, cache, pos, ring)
+
+    def _decode(self, token, cache: dict, pos: int, ring: bool):
         c = self.cfg
         p = self.params
         if c.stub_frontend is not None:

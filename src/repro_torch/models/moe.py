@@ -8,10 +8,9 @@ Top-k gate weights are softmax-renormalized over the selected experts
 (Mixtral §2).  An optional shared expert (Kimi/DeepSeek style) adds a dense
 SwiGLU path.
 
-A port of ``repro.models.moe`` step by step.  The JAX package pins the
-(E, C, D) buffers to the mesh with ``constrain``; that is the identity
-on one device, and the port has no mesh yet, so it is left out (and the
-``rules`` argument with it).  No kernel is reached: dispatch and combine
+A port of ``repro.models.moe`` step by step, the (E, C, D) buffers
+pinned to the mesh with ``constrain`` as there (the identity without a
+mesh).  No kernel is reached: dispatch and combine
 are a stable sort plus two scatters, the expert products batched
 matmuls, as the JAX package computes them outside any Pallas kernel.
 Nothing here waits on the card: no shape depends on the routing, so a
@@ -25,6 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from .layers import swiglu
+from .sharding import ShardingRules, constrain
+
+BUF_AXES = ("experts", "expert_in", "expert_d")
 
 
 def capacity(t: int, top_k: int, n_experts: int,
@@ -52,8 +54,7 @@ def route(xf, router_w, top_k: int):
 def expert_counts(flat_e, n_experts: int):
     """Pairs routed to each expert (``bincount`` would wait on the card
     for the largest index)."""
-    return torch.zeros(n_experts, dtype=torch.long,
-                       device=flat_e.device).scatter_add_(
+    return flat_e.new_zeros(n_experts).scatter_add(
         0, flat_e, torch.ones_like(flat_e))
 
 
@@ -72,16 +73,21 @@ def dispatch_order(top_idx, n_experts: int):
     return order, e_sorted, rank
 
 
-def dispatch(xf, e_sorted, tok_sorted, rank, cap: int, n_experts: int):
+def dispatch(xf, e_sorted, tok_sorted, rank, cap: int, n_experts: int,
+             rules: ShardingRules | None = None):
     """Scatter-add each pair's token into the (E, cap, D) buffer at
     (expert, rank).  A pair of rank >= cap is dropped: it adds zeros to
     slot 0.  Returns (buffer, kept (t*k, 1), slot)."""
     keep = (rank < cap)[:, None]
     slot = torch.where(keep[:, 0], rank, 0)
-    buf = torch.zeros((n_experts, cap, xf.shape[-1]), dtype=xf.dtype,
-                      device=xf.device)
-    buf.index_put_((e_sorted, slot), torch.where(keep, xf[tok_sorted], 0),
-                   accumulate=True)
+    buf = xf.new_zeros((n_experts, cap, xf.shape[-1]))
+    if rules is not None:
+        buf = constrain(buf, BUF_AXES, rules)
+    buf = buf.index_put((e_sorted, slot),
+                        torch.where(keep, xf[tok_sorted], 0),
+                        accumulate=True)
+    if rules is not None:
+        buf = constrain(buf, BUF_AXES, rules)
     return buf, keep, slot
 
 
@@ -98,13 +104,13 @@ def combine(out_buf, e_sorted, slot, keep, tok_sorted, g_sorted, t: int):
     weight it by its gate, scatter-add it back to its token: (t, D)."""
     pair_out = torch.where(keep, out_buf[e_sorted, slot], 0) \
         * g_sorted[:, None].to(out_buf.dtype)
-    y = torch.zeros((t, out_buf.shape[-1]), dtype=out_buf.dtype,
-                    device=out_buf.device)
-    return y.index_put_((tok_sorted,), pair_out, accumulate=True)
+    y = out_buf.new_zeros((t, out_buf.shape[-1]))
+    return y.index_put((tok_sorted,), pair_out, accumulate=True)
 
 
 def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
-            capacity_factor: float, shared=None):
+            capacity_factor: float, rules: ShardingRules | None = None,
+            shared=None):
     """x: (B, S, D); router_w: (D, E); w_*: (E, D, F) / (E, F, D).
 
     Returns (B, S, D)."""
@@ -118,8 +124,11 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     tok_sorted = order // top_k  # flat pair i is token i // k
     g_sorted = gates.reshape(-1)[order]
     cap = capacity(t, top_k, e, capacity_factor)
-    buf, keep, slot = dispatch(xf, e_sorted, tok_sorted, rank, cap, e)
+    buf, keep, slot = dispatch(xf, e_sorted, tok_sorted, rank, cap, e,
+                               rules)
     out_buf = experts(buf, w_gate, w_up, w_down)
+    if rules is not None:
+        out_buf = constrain(out_buf, BUF_AXES, rules)
     y = combine(out_buf, e_sorted, slot, keep, tok_sorted, g_sorted, t)
     if shared is not None:
         y = y + swiglu(xf, shared["w_gate"], shared["w_up"],

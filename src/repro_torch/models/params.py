@@ -5,7 +5,10 @@ The model is described by a nested structure (dicts and lists) of
 drawing from an explicit ``torch.Generator``.  The init rules are the
 JAX package's (``normal``, ``ones``, ``zeros``, ``a_log``, ``dt_bias``);
 the random numbers differ, since the two frameworks' generators do.
-The logical axes are kept for the multi-GPU sharding still to come.
+From the logical axes ``tree_abstract`` derives "meta" tensors (the
+dry-run's allocation-free stand-ins) and ``tree_shardings`` the
+``NamedSharding`` of every leaf on a mesh, which ``distribute_tree``
+applies as ``jax.device_put(tree, shardings)`` does.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from .sharding import NamedSharding, ShardingRules, sharding_for
 
 
 @dataclass(frozen=True)
@@ -33,6 +38,41 @@ def spec_leaves(specs) -> list[ParamSpec]:
         return [specs]
     items = specs.values() if isinstance(specs, dict) else specs
     return [leaf for s in items for leaf in spec_leaves(s)]
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_map(fn, tree, is_leaf=is_spec):
+    """``fn`` on every leaf of a nested dict/list structure (a leaf is
+    what ``is_leaf`` accepts, or anything not a dict or list)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
+    if isinstance(tree, list) and not is_leaf(tree):
+        return [tree_map(fn, v, is_leaf) for v in tree]
+    return fn(tree)
+
+
+def tree_abstract(specs, dtype) -> dict:
+    """"meta" tensors of the specs' shapes in ``dtype``: no memory."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), specs)
+
+
+def tree_shardings(specs, mesh, rules: ShardingRules):
+    """The ``NamedSharding`` of every spec's logical axes on ``mesh``."""
+    return tree_map(lambda s: sharding_for(s.axes, mesh, rules), specs)
+
+
+def distribute_tree(tree, shardings):
+    """Every tensor of ``tree`` as a DTensor with the sharding at the
+    same place in ``shardings`` (a tree of ``NamedSharding``)."""
+    if isinstance(shardings, NamedSharding):
+        return shardings.distribute(tree)
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, shardings[k]) for k, v in tree.items()}
+    return [distribute_tree(v, s) for v, s in zip(tree, shardings)]
 
 
 def count_params(specs) -> int:

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from ..kernels.ssd.ops import ssd_chunked_scan
 from .layers import rmsnorm
+from .sharding import ShardingRules, constrain
 
 
 def _causal_conv(x, conv_w, tail=None):
@@ -33,7 +34,8 @@ def _causal_conv(x, conv_w, tail=None):
     return out, xp[:, s:]  # the last W-1 positions
 
 
-def mamba2_block(x, p, cfg, state=None, return_state: bool = False):
+def mamba2_block(x, p, cfg, rules: ShardingRules, state=None,
+                 return_state: bool = False):
     """x: (B, S, D). p: the layer's params. state: None (train, or
     prefill when ``return_state=True``) or dict(h, conv) for single-step
     decode.  Returns (y, new_state)."""
@@ -55,6 +57,7 @@ def mamba2_block(x, p, cfg, state=None, return_state: bool = False):
                                  None if state is None else state["conv"])
     xin = F.silu(xin.float()).to(x.dtype)
     xh = xin.reshape(b, s, nh, pdim)
+    xh = constrain(xh, ("batch", None, "ssm_heads", None), rules)
 
     if state is None:
         chunk = min(cfg.ssm.chunk, s)

@@ -121,7 +121,13 @@ SLICE_MODULES = ("repro_torch.configs", "repro_torch.models",
                  "repro_torch.ckpt", "repro_torch.launch.steps",
                  "repro_torch.launch.train", "repro_torch.runtime.train_loop",
                  "repro_torch.runtime.straggler",
-                 "repro_torch.data.pipeline")
+                 "repro_torch.data.pipeline",
+                 # the mesh slice
+                 "repro_torch.models.sharding", "repro_torch.launch.mesh",
+                 "repro_torch.optim.grad_compress",
+                 "repro_torch.kernels.sharded", "repro_torch.launch.dryrun",
+                 "repro_torch.analysis", "repro_torch.analysis.roofline",
+                 "repro_torch.analysis.report")
 
 
 def test_model_stack_modules_load_neither_jax_nor_repro():
@@ -253,3 +259,28 @@ def test_full_width_train_state_outgrows_one_card():
     from repro_torch.launch.train import train_state_bytes
     need = train_state_bytes(get_config("zamba2-7b"))
     assert 80e9 < need < 82e9
+
+
+def test_a_spawned_rank_loads_neither_jax_nor_repro():
+    """A gloo rank that imports every ``repro_torch`` module and runs a
+    sharded matmul holds no JAX module (``run_world`` checks each
+    rank's ``sys.modules``)."""
+    import torch_mesh_cells as cells
+    assert cells.run_world(cells.import_program, world=2,
+                           timeout=120)["sum"] == 8.0
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "zamba2-7b"])
+def test_full_size_model_builds_on_meta_only(arch):
+    """``device="meta"`` builds a full-size model with no memory (the
+    dry-run's); the engine's devices still take cuda or cpu only."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models import Transformer, count_params, param_specs
+    cfg = get_config(arch)
+    model = Transformer(cfg, device="meta")
+    assert all(p.device.type == "meta" for p in model.parameters())
+    assert sum(p.numel() for p in model.parameters()) == \
+        count_params(param_specs(cfg))
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
