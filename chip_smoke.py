@@ -49,7 +49,7 @@ result.  Phases, each of which fails the run on any error:
    a batch.  Then ``recover`` from the directory alone, three ways, each
    held to the inline store in level shapes, ``seq``, ``num_entries``,
    lookup results and (the first two) the digests of both scan mixes'
-   first 4 batches: the full
+   first 2 batches: the full
    log replayed, the snapshot plus the WAL tail, and a copy whose shard 0
    lost half of its last frame (shard 0 replays one frame fewer and
    equals a one-shard store fed its surviving frames; shards 1-7 equal
@@ -63,7 +63,7 @@ result.  Phases, each of which fails the run on any error:
    (``EngineConfig(procs=4, devices=1, wal_dir=<tmp dir>,
    fsync="batch")``: two shards a worker, every shard on cuda:0, a CUDA
    context a worker) takes the same load, lookups and tail deletes and
-   the first 4 batches of each scan mix.  What its parent sees is held to
+   the first 2 batches of each scan mix.  What its parent sees is held to
    the inline store after the load and after the lookups: every shard's
    entries and ``IOStats`` from its worker's STATS reply, the kernel
    counters, and the level records the workers shipped into the
@@ -83,6 +83,25 @@ result.  Phases, each of which fails the run on any error:
    card's memory a process, the replay with 4 workers against phase
    2d's, and the launches a worker are printed; the device's busy share
    is not (the parent's profiler sees no worker's kernels).
+2f. A real process death: a writer process (``python3 chip_smoke.py
+   --kill-child <dir>`` on ``cuda``, a CUDA context of its own) streams
+   the cell's load into a durable 8-shard store (``fsync="batch"``) and
+   acknowledges each put batch and its range deletes by a line of
+   ``acked.log``, fsynced after both calls returned.  Once a number of
+   batches drawn from ``--seed`` in [120, 240] is acknowledged, the
+   parent kills it with SIGKILL, recovers the directory on the card and
+   looks up each put batch's keys (lookup batches of 8192) up to two
+   batches past the in-flight one, then 8192 keys the acked range
+   deletes killed.  Every key of the acked batches and of the in-flight
+   one must be served as some stage of the envelope gives it, by the
+   plain model: the acked prefix, then the in-flight batch's puts, its
+   point deletes (none in this stream) and its range deletes, each a
+   WAL frame of its own on every shard.  The killed keys must be absent,
+   and the envelope of two batches more than were acknowledged (writes
+   never issued: a planted fault) must fail.  The replay launches one
+   ``merge_path_sm90`` a gated merge; the lookups one ``cascade_sm90`` a
+   shard sub-batch that leaves the memtable a key to find, as many as
+   the kernel counters count.
 3. The per-level route: the same lookups with the cascade off must
    return the same results, every per-level launch a ``bloom_sm90`` or
    ``interval_sm90`` one (none of the first ``bloom`` or ``interval``),
@@ -156,6 +175,21 @@ result.  Phases, each of which fails the run on any error:
    alike; then a ``VersionedSampleStore`` of 8 versions of 100,000
    samples, two purged, held to a plain model by lookups and
    ``scan_version``.
+5d. The seven configurations phases 5 and 5b do not run, one at a time:
+   gemma3-1b, h2o-danube-3-4b, chatglm3-6b, minitron-8b, mamba2-130m,
+   musicgen-large and paligemma-3b (these two take standard-normal
+   embeddings through their stub frontends).  At 2 layers in f32 and
+   full width, a prefill of 2 x 128 on the card launching only the
+   CUDA-core kernels (``flash_attention`` once a layer, ``ssd`` once a
+   layer for mamba2-130m) must equal the port's CPU path on the same
+   weights within 1e-3 of each tensor's largest magnitude.  Then in bf16
+   at full depth (random weights from ``--seed``): three timed prefills
+   of 4 x 2048, each launching ``ZOO``'s count of
+   ``flash_attention_sm90`` (gemma3-1b's local layers take the banded
+   attention) or ``ssd_sm90`` and no CUDA-core kernel, the time by
+   kernel family, then decode: ``ServeLoop`` over 4 sessions for 16
+   steps for the token configs, 16 ``decode_step`` calls on embeddings
+   at batch 4 for the other two; parameters and peak memory.
 6. The four model kernels against their plain versions at the bf16
    prefill's shapes (SSD: 4 x 112 heads, chunks of 128, p = n = 64;
    flash: 4 x 2048, 32 heads of 112): the tensor-core kernels through
@@ -265,6 +299,7 @@ RANGES_PER_BATCH = 82
 RANGE_LEN = 256
 LOOKUP_BATCHES = 64
 LOOKUP_BATCH = 8192
+STORE_KEYS = 3_000_000  # the store cell's puts (the reference's MAX_PACK_*)
 KERNEL_SOURCES = {
     "cascade": ("src/repro_torch/csrc/cascade.cu",
                 "src/repro/kernels/cascade/kernel.py:125"),
@@ -298,6 +333,14 @@ BIG_LEVEL = 1 << 20  # areas of the large DR-tree level
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def timed(what: str):
+    """Log the wall seconds of a phase that does not log its own."""
+    t0 = time.perf_counter()
+    yield
+    log(f"{what}: {time.perf_counter() - t0:.3f} s")
 
 
 # ------------------------------------------------------------ workload
@@ -597,7 +640,9 @@ SCAN_MIXES = {  # name: (batches, scans a batch, width)
     "slabs": (8, 1024, 1 << 16),  # SessionRegistry.live_pages' slab
     "long": (8, 64, 1 << 20),
 }
-RECOVERED_SCAN_BATCHES = 4  # of each mix, on recovered and procs stores
+# Batches of each mix that recovered and procs stores scan: enough to
+# compare digests, few enough for the script's time limit.
+RECOVERED_SCAN_BATCHES = 2
 
 
 def live_keys(keys: np.ndarray, los: np.ndarray) -> np.ndarray:
@@ -1463,7 +1508,217 @@ def procs_recovery(rec, want, batches, cut, live, inline, durable, card):
     return got, merges, r["frames_replayed"]
 
 
-def store_phases(card: str) -> list[dict]:
+# ------------------------------------------------- a real process death
+KILL_ACKED = (120, 240)  # acked batches before the kill, drawn from --seed
+KILL_WAIT = 600  # s the child may take to reach them
+KILL_SAMPLE = 8192  # range-deleted keys checked absent
+ACKED = "acked.log"
+CHILD_MODULES = "child_modules.json"  # jax / repro modules the child loaded
+
+
+def kill_child_main(wal_dir: str, device: str) -> int:
+    """The writer of phase 2f, in a process of its own: the cell's
+    stream (``make_stream(0, STORE_KEYS)``) into a durable 8-shard store on
+    ``device``, each put batch and its range deletes acknowledged by a
+    line in ``acked.log`` (written, flushed and fsynced after both calls
+    returned).  It runs until the parent kills it."""
+    eng = build_engine(8, device, wal_dir=wal_dir, fsync="batch")
+    with open(os.path.join(wal_dir, CHILD_MODULES), "w") as f:
+        json.dump(sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "jaxlib", "repro")), f)
+    keys, los = make_stream(0, STORE_KEYS)
+    with open(os.path.join(wal_dir, ACKED), "w") as ack:
+        for b in range(los.shape[0]):
+            k = keys[b * PUT_BATCH:(b + 1) * PUT_BATCH]
+            eng.put_batch(k, k + np.uint64(1))
+            range_deletes(eng, los[b])
+            ack.write(f"{b}\n")
+            ack.flush()
+            os.fsync(ack.fileno())
+    eng.close()
+    return 0
+
+
+def acked_batches(wal_dir: str) -> int:
+    """Batches the child acknowledged: the whole lines of ``acked.log``,
+    which must count 0, 1, ... in order."""
+    try:
+        with open(os.path.join(wal_dir, ACKED)) as f:
+            lines = f.read().split("\n")[:-1]
+    except FileNotFoundError:
+        return 0
+    assert lines == [str(i) for i in range(len(lines))], lines[-3:]
+    return len(lines)
+
+
+def kill_child(wal_dir: str, target: int, device: str) -> int:
+    """Start the writer on ``wal_dir``, SIGKILL it once ``target``
+    batches are acknowledged, and return the count read after its
+    death.  The child must not end on its own or miss ``KILL_WAIT``."""
+    err_path = os.path.join(wal_dir, "child.err")
+    with open(err_path, "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--kill-child",
+             wal_dir, "--kill-device", device],
+            stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        deadline = time.monotonic() + KILL_WAIT
+        while acked_batches(wal_dir) < target:
+            if child.poll() is not None:
+                with open(err_path) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"the writer exited ({child.returncode})"
+                                     f" before the kill: {tail}")
+            assert time.monotonic() < deadline, \
+                f"fewer than {target} acked batches in {KILL_WAIT} s"
+            time.sleep(0.01)
+        child.kill()
+        child.wait(timeout=60)
+        assert child.returncode == -9, child.returncode
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+    with open(os.path.join(wal_dir, CHILD_MODULES)) as f:
+        assert json.load(f) == [], "the writer loaded jax or repro"
+    return acked_batches(wal_dir)
+
+
+def envelope(keys, los, n: int) -> list[tuple]:
+    """The stores a recovery may serve after ``n`` acknowledged batches,
+    as (put keys, range-delete bounds) of the plain model: the acked
+    prefix, then batch n's puts, its point deletes (the cell's stream has
+    none, so that stage equals the one before) and its range deletes.
+    Each of those is its own per-shard WAL frame, so any prefix of them
+    may be durable on a given shard."""
+    stages = [(keys[:n * PUT_BATCH], los[:n])]
+    if n < los.shape[0]:
+        puts = (keys[:(n + 1) * PUT_BATCH], los[:n])
+        stages += [puts, puts, (puts[0], los[:n + 1])]
+    return stages
+
+
+def outside_envelope(found, vals, q, stages) -> np.ndarray:
+    """The queries whose served state is no stage's plain-model answer."""
+    ok = np.zeros(len(q), bool)
+    for k, l in stages:
+        mf, mv = model_lookup(k, l, q)
+        ok |= (found == mf) & (~found | (vals == mv))
+    return ~ok
+
+
+def deleted_sample(keys, los, n: int, stages, rng) -> tuple:
+    """``KILL_SAMPLE`` keys that the acked prefix range-deleted and no
+    stage brings back (put keys a range delete killed first, topped up
+    with points inside the acked range deletes), and how many of them
+    were killed puts."""
+    q = keys[:n * PUT_BATCH]
+    killed = q[~model_lookup(q, los[:n], q)[0]]
+    lo = los[:n].reshape(-1)
+    spots = lo[rng.integers(0, len(lo), 2 * KILL_SAMPLE)] + \
+        rng.integers(0, RANGE_LEN, 2 * KILL_SAMPLE).astype(np.uint64)
+    cand = np.unique(np.concatenate([killed, spots]))
+    for k, l in stages:
+        cand = cand[~model_lookup(k, l, cand)[0]]
+    pick = np.isin(cand, killed)
+    cand = np.concatenate([rng.permutation(cand[pick]),
+                           rng.permutation(cand[~pick])])
+    assert len(cand) >= KILL_SAMPLE, len(cand)
+    return cand[:KILL_SAMPLE], int(min(pick.sum(), KILL_SAMPLE))
+
+
+def cascade_launches(eng, q: np.ndarray) -> int:
+    """The cascade launches a ``get_batch`` of ``q`` makes: one a shard,
+    less the shards whose memtables hold every key of their sub-batch
+    (``LSMTree.get_batch`` calls the cascade only for a key left)."""
+    shard = eng.router.shard_of(q)
+    n = 0
+    for s, sh in enumerate(eng.shards):
+        sub = q[shard == s]
+        mem = sh.tree._mem_sorted()[0] if sh.tree.mem else sub[:0]
+        n += bool(len(sub)) and not np.isin(sub, mem).all()
+    return n
+
+
+def kill_phase(keys, los, seed: int, card: str,
+               device: str = "cuda") -> dict:
+    """Phase 2f: a durable writer of the cell's stream killed with
+    SIGKILL after a seeded number of acknowledged batches, its directory
+    recovered on the card and every key of the acked prefix and of the
+    in-flight batch held to the envelope; the envelope of two batches
+    more must fail.  ``keys, los`` are the cell's stream, which the
+    writer draws again.  Returns the launches by path."""
+    from repro_torch.kernels import native
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    target = int(rng.integers(KILL_ACKED[0], KILL_ACKED[1] + 1))
+    root = tempfile.mkdtemp(prefix="chip_smoke_kill_")
+    try:
+        t1 = time.perf_counter()
+        n = kill_child(root, target, device)
+        child_s = time.perf_counter() - t1
+        assert target <= n < los.shape[0] - 2, (target, n)
+        log(f"writer killed (SIGKILL) after {n} acknowledged batches "
+            f"({n * PUT_BATCH} puts, {n * RANGES_PER_BATCH} range deletes; "
+            f"target {target} from --seed {seed}) {child_s:.3f} s after "
+            f"its start; WAL {dir_bytes(root)} B on {fs_type(root)}")
+        rec, merges = recover_checked(root, "killed writer")
+        r = structure(rec)
+        log(f"killed writer's store: levels a shard {r['levels']}, entries "
+            f"{r['entries']}")
+        # Lookups: batch b holds put batch b's keys, for b up to n + 2
+        # (the planted envelope's), then the range-deleted sample.
+        stages = envelope(keys, los, n)
+        sample, n_killed = deleted_sample(keys, los, n, stages, rng)
+        batches = [keys[b * PUT_BATCH:(b + 1) * PUT_BATCH]
+                   for b in range(n + 3)] + [sample]
+        want = sum(cascade_launches(rec, q) for q in batches)
+        kc0 = rec.kernel_counters
+        native.reset_launches()
+        t1 = time.perf_counter()
+        results, _ = lookups(rec, batches)
+        look_s = time.perf_counter() - t1
+        calls = rec.kernel_counters.cascade_calls - kc0.cascade_calls
+        assert calls == want, (calls, want)
+        expect_launches(native.LAUNCHES, {"cascade_sm90": calls},
+                        "killed writer's lookups")
+        m = rec.stats()["metrics"]
+        rec.close()
+        found = np.concatenate([f for f, _ in results[:n + 1]])
+        vals = np.concatenate([v for _, v in results[:n + 1]])
+        q = keys[:(n + 1) * PUT_BATCH]
+        bad = outside_envelope(found, vals, q, stages)
+        sf = results[-1][0]
+        planted = outside_envelope(
+            np.concatenate([f for f, _ in results[:n + 3]]),
+            np.concatenate([v for _, v in results[:n + 3]]),
+            keys[:(n + 3) * PUT_BATCH], envelope(keys, los, n + 2))
+        log(f"killed writer: {len(q)} keys of the {n} acked batches and the "
+            f"in-flight one checked against the envelope's "
+            f"{len(stages)} stages, {int(bad.sum())} outside it; "
+            f"{len(sample)} range-deleted keys ({n_killed} of them puts a "
+            f"range delete killed), {int(sf.sum())} found; planted fault "
+            f"(the envelope of {n + 2} batches): {int(planted.sum())} of "
+            f"{(n + 3) * PUT_BATCH} keys outside it; recovery "
+            f"{m['recovery.wall_s']:.3f} s, "
+            f"{int(m['recovery.frames_replayed'])} frames replayed, "
+            f"merge_path_sm90 launches {merges}; {len(batches)} lookup "
+            f"batches in {look_s:.3f} s, cascade_sm90 launches {calls} (8 a "
+            f"batch less {8 * len(batches) - calls} sub-batches the "
+            f"memtables answered), equal to the kernel counters {card}")
+        assert not bad.any(), \
+            f"acked writes lost or corrupted: keys {q[bad][:5]}"
+        assert not sf.any(), f"range-deleted keys served: {sample[sf][:5]}"
+        assert planted.sum() >= PUT_BATCH // 2, \
+            "the check cannot see writes that were never issued"
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 2f: {time.perf_counter() - t0:.3f} s")
+    return {"merge_path_sm90": {"killed writer's recovery": merges},
+            "cascade_sm90": {"killed writer's lookups": calls}}
+
+
+def store_phases(card: str, seed: int) -> list[dict]:
     """Phases 2-4: the store's slice (with the scheduler, durable and
     procs stores), its per-level route and its eight kernels against
     their plain versions; returns their records."""
@@ -1472,7 +1727,7 @@ def store_phases(card: str) -> list[dict]:
     # 2. the slice, cascade on: counts are zeroed just before the load
     # and read just after the lookups.
     shards = 8
-    eng, keys, los = build_slice(3_000_000, shards, 0, "cuda")
+    eng, keys, los = build_slice(STORE_KEYS, shards, 0, "cuda")
     batches = make_lookups(0, keys, LOOKUP_BATCHES, LOOKUP_BATCH)
     torch.cuda.reset_peak_memory_stats()
     kc_start = eng.kernel_counters
@@ -1550,6 +1805,8 @@ def store_phases(card: str) -> list[dict]:
         keys, los, los_all[len(los):], batches, live, inline, scans, card)
     procs_launches = procs_phase(keys, los, los_all[len(los):], batches,
                                  live, inline, scans, durable, card)
+    # 2f. a durable writer of the same stream killed mid-stream.
+    kill_launches = kill_phase(keys, los, seed, card)
     path = {"merge_path_sm90": {"load": main_launches["merge_path_sm90"],
                                 "scans": scans["launches"]["merge_path_sm90"],
                                 "scheduler store": sched_launches[
@@ -1559,7 +1816,7 @@ def store_phases(card: str) -> list[dict]:
                              "scheduler store lookups": sched_launches[
                                  "cascade_sm90"]},
             "interval_sm90": {"scans": scans["launches"]["interval_sm90"]}}
-    for by_path in (durable_launches, procs_launches):
+    for by_path in (durable_launches, procs_launches, kill_launches):
         for name, n in by_path.items():
             path[name].update(n)
 
@@ -2325,19 +2582,137 @@ def free() -> None:
     torch.cuda.empty_cache()
 
 
-def check_prefill_launches(launches: dict, cfg, variant: str = "") -> dict:
-    """A zamba2 prefill launches an SSD kernel once a Mamba2 layer and a
-    flash kernel once a shared-attention application: in f32 the
-    CUDA-core kernels (``variant`` ""), in bf16 the tensor-core ones
-    ("_sm90"), and never the other pair."""
+def launch_want(flash: int, ssd: int, variant: str) -> dict:
+    """The model kernels' launches of a prefill that runs ``flash``
+    attention and ``ssd`` SSD kernels of ``variant`` (the CUDA-core
+    kernels "" in f32, the tensor-core ones "_sm90" in bf16), and never
+    the other pair."""
     other = "_sm90" if not variant else ""
-    want = {"ssd" + variant: cfg.n_layers,
-            "flash_attention" + variant:
-                cfg.n_layers // cfg.hybrid_attn_every,
+    return {"ssd" + variant: ssd, "flash_attention" + variant: flash,
             "ssd" + other: 0, "flash_attention" + other: 0}
-    got = {k: launches[k] for k in want}
-    assert got == want, (got, want)
-    return got
+
+
+def cache_shapes(cache: dict) -> dict:
+    return {k: tuple(v.shape) for k, v in cache.items()}
+
+
+def timed_prefills(model, inputs: dict, want: dict, card: str) -> dict:
+    """A warm-up prefill (not counted: it grows the allocator's cache,
+    so the timed runs measure the prefill and not cudaMalloc), then
+    ``PREFILL_RUNS`` timed ones, each launching exactly ``want`` and
+    returning finite logits and a cache of ``init_cache``'s shapes; the
+    median, the peak memory and one prefill's time by kernel family are
+    logged.  Returns one prefill's launches."""
+    from repro_torch.kernels import native
+    cfg = model.cfg
+    b, s = next(iter(inputs.values())).shape[:2]
+    kv = cache_shapes(model.init_cache(b, s, device="meta"))
+    model.prefill(**inputs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(PREFILL_RUNS):
+        native.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(**inputs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        expect_launches(native.LAUNCHES, want, f"{cfg.name} bf16 prefill")
+        assert logits.shape == (b, 1, cfg.vocab), logits.shape
+        assert torch.isfinite(logits).all() and all(
+            torch.isfinite(v).all() for v in cache.values()), "non-finite"
+        assert cache_shapes(cache) == kv, (cache_shapes(cache), kv)
+        del logits, cache
+    prefill_s = statistics.median(walls)
+    log(f"bf16 prefill {b} x {s} tokens: {PREFILL_RUNS} runs of "
+        f"{', '.join(f'{w:.6f}' for w in walls)} s, median "
+        f"{prefill_s:.6f} s = {b * s / prefill_s:.1f} tokens/s; each "
+        f"launched {json.dumps(want)}; peak memory "
+        f"{torch.cuda.max_memory_allocated()} B {card}")
+    free()
+    log("bf16 prefill time by kernel family: " + time_breakdown(
+        lambda: model.prefill(**inputs), card))
+    free()
+    return want
+
+
+def serve_check(model, rng, card: str, tag: str) -> None:
+    """``ServeLoop`` over 4 sessions registered in a ``SessionRegistry``
+    on ``cuda`` for ``SERVE_STEPS`` steps (decode ms a step, tokens/s),
+    then one decode step's time by kernel family."""
+    from repro_torch.kernels import native
+    from repro_torch.runtime import ServeLoop, SessionRegistry
+    cfg = model.cfg
+    b = SERVE_PREFILL[0]
+    reg = SessionRegistry(strategy="gloran", device="cuda")
+    sessions = np.arange(b, dtype=np.uint64) + 1000
+    for sid in sessions:
+        reg.register(int(sid), np.arange(8), np.arange(8) + sid)
+    loop = ServeLoop(model, batch=b, max_len=SERVE_PROMPT + SERVE_STEPS,
+                     registry=reg)
+    prompts = rng.integers(0, cfg.vocab, (b, SERVE_PROMPT)).astype(np.int32)
+    native.reset_launches()
+    out = loop.run(prompts, steps=SERVE_STEPS, session_ids=sessions)
+    serve_launches = dict(native.LAUNCHES)
+    st = loop.stats
+    assert out.shape == (b, SERVE_STEPS) and (out >= 0).all() \
+        and (out < cfg.vocab).all(), out
+    assert st.registry_lookups == b * SERVE_STEPS, st
+    found, vals = reg.lookup(sessions, np.zeros(b, np.uint64))
+    assert found.all() and (vals == sessions).all(), (found, vals)
+    steps = SERVE_PROMPT + SERVE_STEPS
+    log(f"ServeLoop ({tag}): {b} sessions, {SERVE_PROMPT}-token prompts "
+        f"fed by decode, {SERVE_STEPS} steps in {st.wall_seconds:.6f} s = "
+        f"{1e3 * st.wall_seconds / steps:.3f} ms a decode step, "
+        f"{st.tokens_generated / st.wall_seconds:.3f} generated tokens/s; "
+        f"registry lookups {st.registry_lookups}, io reads "
+        f"{st.registry_io_reads}, stall {st.registry_stall_seconds:.6f} s; "
+        f"launches {json.dumps(serve_launches)} {card}")
+    cache = model.init_cache(b, 64)
+    tok = torch.as_tensor(prompts[:, :1], device="cuda")
+    with torch.inference_mode():
+        log("bf16 decode step time by kernel family: " + time_breakdown(
+            lambda: model.decode_step(tok, cache, 0), card))
+    reg.engine.close()
+    del cache
+    free()
+
+
+def card_vs_cpu(model, inputs: dict, want: dict, run=None) -> tuple:
+    """An f32 model's prefill on the card, launching exactly ``want``,
+    then the same model moved to the CPU (``.to``) on the same inputs,
+    launching nothing: the largest ``|card - CPU| / max |CPU|`` of the
+    logits and of every cache entry must be within ``F32_TOL``.
+    ``run(model, **inputs)`` gives (logits, cache, anything else to
+    compare), the prefill by default; the model ends on the CPU.
+    Returns (the errors, both sides' extras, the CPU side's seconds)."""
+    from repro_torch.kernels import native
+    run = run or (lambda m, **kw: (*m.prefill(**kw), None))
+    cfg = model.cfg
+    native.reset_launches()
+    logits, cache, card_extra = run(model, **{k: v.cuda() for k, v in
+                                              inputs.items()})
+    torch.cuda.synchronize()
+    expect_launches(native.LAUNCHES, want, f"{cfg.name} f32 prefill")
+    on_card = {"logits": logits.cpu(), **{k: v.cpu() for k, v in
+                                          cache.items()}}
+    del logits, cache
+    before = dict(native.LAUNCHES)
+    t0 = time.perf_counter()
+    model.to("cpu")
+    free()
+    assert model.device.type == "cpu"
+    logits, cache, cpu_extra = run(model, **inputs)
+    cpu_s = time.perf_counter() - t0
+    assert dict(native.LAUNCHES) == before, "the CPU path launched a kernel"
+    on_cpu = {"logits": logits, **cache}
+    b = next(iter(inputs.values())).shape[0]
+    assert logits.shape == (b, 1, cfg.vocab) and all(
+        torch.isfinite(v).all() for v in on_card.values()), "non-finite"
+    errs = {k: rel_err(on_card[k], on_cpu[k]) for k in on_cpu}
+    bad = {k: e for k, e in errs.items() if not e <= F32_TOL}
+    assert not bad, f"{cfg.name}: card vs CPU beyond {F32_TOL}: {bad}"
+    return errs, (card_extra, cpu_extra), cpu_s
 
 
 def time_breakdown(fn, card: str) -> str:
@@ -2407,7 +2782,6 @@ def model_phase(seed: int, card: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import native
     from repro_torch.models import Transformer, count_params, param_specs
-    from repro_torch.runtime import ServeLoop, SessionRegistry
 
     cfg = get_config(MODEL_ARCH)
     n_params = count_params(param_specs(cfg))
@@ -2428,7 +2802,9 @@ def model_phase(seed: int, card: str) -> dict:
     native.reset_launches()
     logits, cache = model.prefill(toks)
     torch.cuda.synchronize()
-    got = check_prefill_launches(dict(native.LAUNCHES), cfg)
+    n_attn = cfg.n_layers // cfg.hybrid_attn_every
+    got = launch_want(n_attn, cfg.n_layers, "")
+    expect_launches(native.LAUNCHES, got, f"{MODEL_ARCH} f32 prefill")
     dcache = model.init_cache(b, s)
     with torch.inference_mode():
         for t in range(s):
@@ -2459,69 +2835,11 @@ def model_phase(seed: int, card: str) -> dict:
     b, s = SERVE_PREFILL
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
                            device="cuda")
-    # A full-size warm-up (not counted) grows the allocator's cache, so
-    # the timed runs measure the prefill and not cudaMalloc.
-    model.prefill(toks)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    walls = []
-    for _ in range(PREFILL_RUNS):
-        native.reset_launches()
-        t0 = time.perf_counter()
-        logits, cache = model.prefill(toks)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        launches = check_prefill_launches(dict(native.LAUNCHES), cfg,
-                                          "_sm90")
-        assert logits.shape == (b, 1, cfg.vocab)
-        assert torch.isfinite(logits).all() and all(
-            torch.isfinite(v).all() for v in cache.values()), "non-finite"
-        kv = (cfg.n_layers // cfg.hybrid_attn_every, b, s, cfg.n_kv_heads,
-              cfg.head_dim_)
-        assert cache["ak"].shape == kv, cache["ak"].shape
-        del logits, cache
-    prefill_s = statistics.median(walls)
-    log(f"bf16 prefill {b} x {s} tokens: {PREFILL_RUNS} runs of "
-        f"{', '.join(f'{w:.6f}' for w in walls)} s, median "
-        f"{prefill_s:.6f} s = {b * s / prefill_s:.1f} tokens/s; each "
-        f"launched {json.dumps(launches)}; peak memory "
-        f"{torch.cuda.max_memory_allocated()} B {card}")
-    free()
-    log("bf16 prefill time by kernel family: " + time_breakdown(
-        lambda: model.prefill(toks), card))
-    free()
-
-    reg = SessionRegistry(strategy="gloran", device="cuda")
-    sessions = np.arange(b, dtype=np.uint64) + 1000
-    for sid in sessions:
-        reg.register(int(sid), np.arange(8), np.arange(8) + sid)
-    loop = ServeLoop(model, batch=b, max_len=SERVE_PROMPT + SERVE_STEPS,
-                     registry=reg)
-    prompts = rng.integers(0, cfg.vocab, (b, SERVE_PROMPT)).astype(np.int32)
-    native.reset_launches()
-    out = loop.run(prompts, steps=SERVE_STEPS, session_ids=sessions)
-    serve_launches = dict(native.LAUNCHES)
-    st = loop.stats
-    assert out.shape == (b, SERVE_STEPS) and (out >= 0).all() \
-        and (out < cfg.vocab).all(), out
-    assert st.registry_lookups == b * SERVE_STEPS, st
-    found, vals = reg.lookup(sessions, np.zeros(b, np.uint64))
-    assert found.all() and (vals == sessions).all(), (found, vals)
-    steps = SERVE_PROMPT + SERVE_STEPS
-    log(f"ServeLoop: {b} sessions, {SERVE_PROMPT}-token prompts fed by "
-        f"decode, {SERVE_STEPS} steps in {st.wall_seconds:.6f} s = "
-        f"{1e3 * st.wall_seconds / steps:.3f} ms a decode step, "
-        f"{st.tokens_generated / st.wall_seconds:.3f} generated tokens/s; "
-        f"registry lookups {st.registry_lookups}, io reads "
-        f"{st.registry_io_reads}, stall {st.registry_stall_seconds:.6f} s; "
-        f"launches {json.dumps(serve_launches)} {card}")
-    cache = model.init_cache(b, 64)
-    tok = torch.as_tensor(prompts[:, :1], device="cuda")
-    with torch.inference_mode():
-        log("bf16 decode step time by kernel family: " + time_breakdown(
-            lambda: model.decode_step(tok, cache, 0), card))
-    reg.engine.close()
-    del model, cache
+    launches = timed_prefills(model, {"tokens": toks},
+                              launch_want(n_attn, cfg.n_layers, "_sm90"),
+                              card)
+    serve_check(model, rng, card, MODEL_ARCH)
+    del model
     free()
     return {k: got[k] + launches[k] for k in got}
 
@@ -2583,12 +2901,11 @@ def prefill_dropping(model, toks) -> tuple:
 
 def moe_check(cfg, seed: int, rng, card: str) -> dict:
     """Phase 5b's f32 check at full width: the card's prefill held to the
-    port's CPU path on the same weights (the model moved with ``.to``),
-    with the same pairs dropped.  A prefill against a teacher-forced
-    decode does not hold for MoE: the capacity depends on the token
-    count, so the two may drop different pairs."""
+    port's CPU path on the same weights (``card_vs_cpu``), with the same
+    pairs dropped.  A prefill against a teacher-forced decode does not
+    hold for MoE: the capacity depends on the token count, so the two
+    may drop different pairs."""
     from dataclasses import replace
-    from repro_torch.kernels import native
     from repro_torch.models import Transformer
     from repro_torch.models.moe import capacity
 
@@ -2598,44 +2915,23 @@ def moe_check(cfg, seed: int, rng, card: str) -> dict:
     log(f"{MOE_ARCH} f32 check model: {n_layers} layers at full width, "
         f"{torch.cuda.memory_allocated()} B allocated {card}")
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)))
-    native.reset_launches()
-    logits, cache, card_drops = prefill_dropping(model, toks.cuda())
-    torch.cuda.synchronize()
-    got = {k: native.LAUNCHES[k] for k in
-           ("flash_attention", "flash_attention_sm90", "ssd", "ssd_sm90")}
-    want = {"flash_attention": n_layers, "flash_attention_sm90": 0,
-            "ssd": 0, "ssd_sm90": 0}
-    assert got == want, (got, want)
-    on_card = {"logits": logits.cpu(), **{k: v.cpu() for k, v in
-                                          cache.items()}}
-    del logits, cache
-    before = dict(native.LAUNCHES)
-    t0 = time.perf_counter()
-    model.to("cpu")
-    free()
-    assert model.device.type == "cpu"
-    logits, cache, cpu_drops = prefill_dropping(model, toks)
-    cpu_s = time.perf_counter() - t0
-    assert dict(native.LAUNCHES) == before, "the CPU path launched a kernel"
-    on_cpu = {"logits": logits, **cache}
-    assert logits.shape == (b, 1, cfg.vocab) and all(
-        torch.isfinite(v).all() for v in on_card.values()), "non-finite"
-    errs = {k: rel_err(on_card[k], on_cpu[k]) for k in on_cpu}
+    want = launch_want(n_layers, 0, "")
+    errs, (card_drops, cpu_drops), cpu_s = card_vs_cpu(
+        model, {"toks": toks}, want,
+        run=lambda m, toks: prefill_dropping(m, toks))
     n_card, n_cpu = [len(d) for d in card_drops], [len(d) for d in cpu_drops]
     m = cfg.moe
     log(f"f32 prefill {b} x {s}, {n_layers} layers: launched "
-        f"{json.dumps(got)}; card against the CPU path (moved and run in "
+        f"{json.dumps(want)}; card against the CPU path (moved and run in "
         f"{cpu_s:.3f} s; max |diff| / max |.|): {json.dumps(errs)}; pairs "
         f"dropped a layer: card {n_card}, CPU {n_cpu} (capacity "
         f"{capacity(b * s, m.top_k, m.n_experts, m.capacity_factor)} an "
         f"expert, {b * s * m.top_k} pairs over {m.n_experts} experts)")
     assert n_card == n_cpu, f"dropped pairs differ: {n_card} / {n_cpu}"
     assert card_drops == cpu_drops, "the card and the CPU drop other pairs"
-    bad = {k: e for k, e in errs.items() if not e <= F32_TOL}
-    assert not bad, f"card vs CPU beyond {F32_TOL}: {bad}"
-    del model, logits, cache
+    del model
     free()
-    return got
+    return want
 
 
 def moe_depth(cfg, card: str) -> int:
@@ -2695,9 +2991,7 @@ def moe_phase(seed: int, card: str) -> dict:
     launches of the f32 check's prefill and of one bf16 prefill."""
     from dataclasses import replace
     from repro_torch.configs import get_config
-    from repro_torch.kernels import native
     from repro_torch.models import Transformer, count_params, param_specs
-    from repro_torch.runtime import ServeLoop, SessionRegistry
 
     cfg = get_config(MOE_ARCH)
     rng = np.random.default_rng(seed)
@@ -2718,35 +3012,8 @@ def moe_phase(seed: int, card: str) -> dict:
     b, s = SERVE_PREFILL
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
                            device="cuda")
-    want = {"flash_attention_sm90": n_layers, "flash_attention": 0,
-            "ssd": 0, "ssd_sm90": 0}
-    model.prefill(toks)  # warm-up: grows the allocator's cache
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    walls = []
-    for _ in range(PREFILL_RUNS):
-        native.reset_launches()
-        t0 = time.perf_counter()
-        logits, cache = model.prefill(toks)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        launches = {k: native.LAUNCHES[k] for k in want}
-        assert launches == want, (launches, want)
-        assert logits.shape == (b, 1, cfg.vocab)
-        assert torch.isfinite(logits).all() and all(
-            torch.isfinite(v).all() for v in cache.values()), "non-finite"
-        kv = (n_layers, b, s, cfg.n_kv_heads, cfg.head_dim_)
-        assert cache["k"].shape == kv, cache["k"].shape
-        del logits, cache
-    prefill_s = statistics.median(walls)
-    log(f"bf16 prefill {b} x {s} tokens: {PREFILL_RUNS} runs of "
-        f"{', '.join(f'{w:.6f}' for w in walls)} s, median "
-        f"{prefill_s:.6f} s = {b * s / prefill_s:.1f} tokens/s; each "
-        f"launched {json.dumps(launches)}; peak memory "
-        f"{torch.cuda.max_memory_allocated()} B {card}")
-    free()
-    log("bf16 prefill time by kernel family: " + time_breakdown(
-        lambda: model.prefill(toks), card))
+    launches = timed_prefills(model, {"tokens": toks},
+                              launch_want(n_layers, 0, "_sm90"), card)
     layer_in = []
     with wrap_moe_ffn(lambda x, r, wg, wu, wd, *, top_k, capacity_factor,
                       **kw: layer_in or layer_in.append(
@@ -2757,40 +3024,125 @@ def moe_phase(seed: int, card: str) -> dict:
     del layer_in
     free()
 
-    reg = SessionRegistry(strategy="gloran", device="cuda")
-    sessions = np.arange(b, dtype=np.uint64) + 1000
-    for sid in sessions:
-        reg.register(int(sid), np.arange(8), np.arange(8) + sid)
-    loop = ServeLoop(model, batch=b, max_len=SERVE_PROMPT + SERVE_STEPS,
-                     registry=reg)
-    prompts = rng.integers(0, cfg.vocab, (b, SERVE_PROMPT)).astype(np.int32)
-    native.reset_launches()
-    out = loop.run(prompts, steps=SERVE_STEPS, session_ids=sessions)
-    serve_launches = dict(native.LAUNCHES)
-    st = loop.stats
-    assert out.shape == (b, SERVE_STEPS) and (out >= 0).all() \
-        and (out < cfg.vocab).all(), out
-    assert st.registry_lookups == b * SERVE_STEPS, st
-    found, vals = reg.lookup(sessions, np.zeros(b, np.uint64))
-    assert found.all() and (vals == sessions).all(), (found, vals)
-    steps = SERVE_PROMPT + SERVE_STEPS
-    log(f"ServeLoop ({MOE_ARCH}, {n_layers} layers): {b} sessions, "
-        f"{SERVE_PROMPT}-token prompts fed by decode, {SERVE_STEPS} steps "
-        f"in {st.wall_seconds:.6f} s = {1e3 * st.wall_seconds / steps:.3f} "
-        f"ms a decode step, {st.tokens_generated / st.wall_seconds:.3f} "
-        f"generated tokens/s; registry lookups {st.registry_lookups}, io "
-        f"reads {st.registry_io_reads}, stall "
-        f"{st.registry_stall_seconds:.6f} s; launches "
-        f"{json.dumps(serve_launches)} {card}")
-    cache = model.init_cache(b, 64)
-    tok = torch.as_tensor(prompts[:, :1], device="cuda")
-    with torch.inference_mode():
-        log("bf16 decode step time by kernel family: " + time_breakdown(
-            lambda: model.decode_step(tok, cache, 0), card))
-    reg.engine.close()
-    del model, cache
+    serve_check(model, rng, card, f"{MOE_ARCH}, {n_layers} layers")
+    del model
     free()
-    return {k: check[k] + launches[k] for k in want}
+    return {k: check[k] + launches[k] for k in launches}
+
+
+# ------------------------------------- the other configurations (5d)
+ZOO = {  # arch: (flash_attention_sm90, ssd_sm90) launches a bf16 prefill
+    "gemma3-1b": (4, 0),  # its global layers; the local ones go banded
+    "h2o-danube-3-4b": (24, 0),
+    "chatglm3-6b": (28, 0),
+    "minitron-8b": (32, 0),
+    "mamba2-130m": (0, 24),
+    "musicgen-large": (48, 0),
+    "paligemma-3b": (18, 0),
+}
+ZOO_CHECK_LAYERS = 2  # f32, at CHECK_PREFILL: card against CPU
+
+
+def model_inputs(cfg, rng, b: int, s: int) -> dict:
+    """Tokens, or standard-normal embeddings for a stub frontend, on the
+    host."""
+    if cfg.stub_frontend is not None:
+        return {"embeds": torch.as_tensor(rng.standard_normal(
+            (b, s, cfg.d_model), dtype=np.float32))}
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)))}
+
+
+def embeds_decode(model, rng, card: str) -> None:
+    """A stub-frontend model's decode (the serve CLI and ``ServeLoop``
+    take tokens): ``decode_step`` on standard-normal embeddings at
+    batch 4 for ``SERVE_STEPS`` steps."""
+    from repro_torch.kernels import native
+    cfg = model.cfg
+    b = SERVE_PREFILL[0]
+    x = model_inputs(cfg, rng, b, SERVE_STEPS)["embeds"].cuda()
+    cache = model.init_cache(b, SERVE_STEPS)
+    native.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(SERVE_STEPS):
+        logits, cache = model.decode_step(x[:, t:t + 1], cache, t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert logits.shape == (b, 1, cfg.vocab) and \
+        torch.isfinite(logits).all(), "non-finite decode"
+    log(f"decode_step on embeddings ({cfg.name}): batch {b}, "
+        f"{SERVE_STEPS} steps in {wall:.6f} s = "
+        f"{1e3 * wall / SERVE_STEPS:.3f} ms a step, "
+        f"{b * SERVE_STEPS / wall:.3f} tokens/s; launches "
+        f"{json.dumps(dict(native.LAUNCHES))} {card}")
+    del cache, logits
+    free()
+
+
+def zoo_config(arch: str, seed: int, card: str) -> dict:
+    """One configuration of phase 5d: the f32 check at 2 layers, then
+    bf16 at full depth (prefills, decode).  Returns the launches of the
+    check and of one bf16 prefill."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, count_params, param_specs
+
+    cfg = get_config(arch)
+    rng = np.random.default_rng(seed)
+    n = ZOO_CHECK_LAYERS
+    model = Transformer(replace(cfg, n_layers=n, dtype="float32"),
+                        device="cuda", seed=seed)
+    attn = 0 if cfg.family == "ssm" else n
+    want = launch_want(attn, n - attn, "")
+    errs, _, cpu_s = card_vs_cpu(model, model_inputs(cfg, rng,
+                                                     *CHECK_PREFILL), want)
+    log(f"{arch} f32, {n} layers at full width: prefill "
+        f"{CHECK_PREFILL[0]} x {CHECK_PREFILL[1]} launched "
+        f"{json.dumps(want)}; card against the CPU path (moved and run in "
+        f"{cpu_s:.3f} s; max |diff| / max |.|): {json.dumps(errs)}")
+    del model
+    free()
+
+    torch.cuda.reset_peak_memory_stats()
+    n_params = count_params(param_specs(cfg))
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    log(f"{arch} bf16: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {n_params} parameters built in "
+        f"{time.perf_counter() - t0:.3f} s; {torch.cuda.memory_allocated()} "
+        f"B allocated {card}")
+    flash, ssd = ZOO[arch]
+    inputs = {k: v.cuda() for k, v in
+              model_inputs(cfg, rng, *SERVE_PREFILL).items()}
+    launches = timed_prefills(model, inputs, launch_want(flash, ssd, "_sm90"),
+                              card)
+    del inputs
+    if cfg.stub_frontend is not None:
+        embeds_decode(model, rng, card)
+    else:
+        serve_check(model, rng, card, arch)
+    log(f"{arch}: {n_params} parameters, peak memory "
+        f"{torch.cuda.max_memory_allocated()} B over the bf16 build, "
+        f"prefills and decode {card}")
+    del model
+    free()
+    return {k: want.get(k, 0) + launches[k] for k in launches}
+
+
+def zoo_phase(seed: int, card: str) -> dict:
+    """Phase 5d: the seven configurations not served in phases 5 and 5b,
+    one at a time, the card's memory freed between them.  Returns the
+    model kernels' launches of their checks and bf16 prefills."""
+    t0 = time.perf_counter()
+    total: dict = {}
+    for arch in ZOO:
+        free()
+        for k, v in zoo_config(arch, seed, card).items():
+            total[k] = total.get(k, 0) + v
+    log(f"phase 5d: {time.perf_counter() - t0:.3f} s; launches "
+        f"{json.dumps(total)}")
+    return total
 
 
 # ------------------------------------------ workload harness (host only)
@@ -3871,7 +4223,13 @@ def trace_phase(eng, batches, card: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kill-child", metavar="WAL_DIR",
+                    help="run as phase 2f's writer on WAL_DIR (started "
+                    "by phase 2f itself)")
+    ap.add_argument("--kill-device", default="cuda")
     args = ap.parse_args(argv)
+    if args.kill_child:
+        return kill_child_main(args.kill_child, args.kill_device)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3888,15 +4246,22 @@ def main(argv=None) -> int:
     log(f"kernel build {time.perf_counter() - t0:.3f} s "
         f"({len(native.KERNELS)} sources)")
 
-    records = store_phases(card)
+    with timed("phases 2-4"):
+        records = store_phases(card, args.seed)
     with tempfile.TemporaryDirectory() as dryrun_out:
         dryrun = start_dryrun(dryrun_out)
         try:
-            launches = model_phase(args.seed, card)
-            moe = moe_phase(args.seed, card)
-            launches = {k: v + moe.get(k, 0) for k, v in launches.items()}
-            workload_phase(args.seed)
-            records += model_kernel_checks(launches, args.seed, card)
+            with timed("phase 5"):
+                launches = model_phase(args.seed, card)
+            with timed("phase 5b"):
+                moe = moe_phase(args.seed, card)
+            zoo = zoo_phase(args.seed, card)
+            launches = {k: v + moe.get(k, 0) + zoo.get(k, 0)
+                        for k, v in launches.items()}
+            with timed("phase 5c"):
+                workload_phase(args.seed)
+            with timed("phase 6"):
+                records += model_kernel_checks(launches, args.seed, card)
             train_phase(records, args.seed, card)
             mesh_phase(records, args.seed, card, dryrun, dryrun_out)
         finally:

@@ -244,6 +244,15 @@ class ShardExecutor:
         """Point-delete a batch of keys (one tombstone each)."""
         self.tree.delete_batch(keys)
 
+    def range_delete(self, lo: int, hi: int) -> None:
+        """Delete [lo, hi) via the tree's configured strategy."""
+        self.tree.range_delete(lo, hi)
+
+    def range_delete_batch(self, ranges) -> None:
+        """Apply a batch of [lo, hi) range deletes in request order
+        (GLORAN absorbs the batch in one index/estimator call)."""
+        self.tree.range_delete_batch(ranges)
+
     def range_delete_arrays(self, los: np.ndarray, his: np.ndarray) -> None:
         """Columnar batch range delete: the plan step's clipped bound
         arrays go straight into the tree (no tuple round trip)."""

@@ -73,14 +73,25 @@ class PendingBatch:
                 for sp in active}
 
     # ----------------------------------------------------------- collect
+    def done(self) -> bool:
+        """True once every shard plan has finished executing."""
+        if self._futures is not None and not self._collected:
+            return all(f.done() for f in self._futures.values())
+        return True
+
     def wait(self) -> "PendingBatch":
         """Block until executed + merged; safe to call repeatedly."""
         with self._lock:
             if not self._collected:
+                # The span records how many distinct devices served the
+                # batch, so a trace shows whether the merge-back waited
+                # on shards spread over cards or on one card.
+                devs = self.engine.device_map()
                 with span("engine.collect",
                           kind=self.plan.batch.kind_name,
                           batch=self.plan.seq,
-                          pipelined=self.pipeline):
+                          pipelined=self.pipeline,
+                          devices=len(set(devs.values()))):
                     self._collect()
                 self._collected = True
         return self
@@ -142,3 +153,14 @@ class PendingBatch:
         """Merged (keys, vals) per range scan op, in op order."""
         self.wait()
         return [self._scan_out[i] for i in self.plan.scan_ids.tolist()]
+
+    @property
+    def shard_walls(self) -> dict[int, float]:
+        """Per-shard busy seconds (populated after ``wait``)."""
+        return dict(self._walls)
+
+    @property
+    def shard_devices(self) -> dict[int, str]:
+        """Home device per shard that executed this batch (the torch
+        device's string, as ``Engine.device_map`` gives it)."""
+        return {s: self.engine.device_map()[s] for s in self._walls}

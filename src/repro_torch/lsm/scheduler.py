@@ -161,6 +161,9 @@ class CompactionScheduler:
                                     kind, level))
         self.max_queue_depth = max(self.max_queue_depth, len(self._heap))
 
+    def queue_depth(self) -> int:
+        return len(self._heap)
+
     def compaction_debt(self) -> int:
         """Pending background work: queued jobs + unflushed snapshots."""
         return len(self._heap) + len(self.tree.frozen)

@@ -145,9 +145,8 @@ def test_model_stack_modules_load_neither_jax_nor_repro():
     assert out.returncode == 0, out.stderr
 
 
-def test_chip_smoke_imports_neither_jax_nor_repro():
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    for node in ast.walk(tree):
+def _imports_neither_jax_nor_repro(path: Path) -> None:
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
@@ -156,6 +155,16 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
             continue
         assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro")
                        for n in names), names
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    _imports_neither_jax_nor_repro(ROOT / "chip_smoke.py")
+
+
+def test_kill_writer_imports_neither_jax_nor_repro():
+    """The child process of the CPU SIGKILL check (chip_smoke's own
+    ``--kill-child`` writer is the script above)."""
+    _imports_neither_jax_nor_repro(ROOT / "tests" / "torch_kill_cells.py")
 
 
 def _model_kernel_operands():
