@@ -12,6 +12,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..obs import NULL_TRACER, span
 from .eve import EVE, RAEConfig
 from .iostats import IOStats
 from .lsm_drtree import LSMDRTree, LSMDRTreeConfig, LSMRTree
@@ -40,6 +41,14 @@ class GloranIndex:
         self.eve = EVE(self.config.eve) if self.config.use_eve else None
         self.gc_floor = 0
         self.num_range_deletes = 0
+        # Point-lookup validity counters (``is_deleted_batch(...,
+        # count=True)``): entries probed, the part EVE could not prove
+        # valid, and the part the index found deleted.  EVE has no false
+        # negatives, so (eve_maybe - deleted) / (lookup_probes - deleted)
+        # is its false-positive rate on valid entries.
+        self.lookup_probes = 0
+        self.eve_maybe = 0
+        self.deleted = 0
 
     # ------------------------------------------------------------- writes
     def range_delete(self, lo: int, hi: int, seq: int) -> None:
@@ -71,9 +80,11 @@ class GloranIndex:
         his = np.asarray(his, dtype=np.uint64)
         seqs = np.asarray(seqs, dtype=np.uint64)
         assert (los < his).all(), "empty range"
-        self.index.insert_batch(los, his, smaxs=seqs)
+        with span("gloran.index_insert", n=len(los)):
+            self.index.insert_batch(los, his, smaxs=seqs)
         if self.eve is not None:
-            self.eve.insert_range_batch(los, his, seqs)
+            with span("gloran.eve_insert", n=len(los)):
+                self.eve.insert_range_batch(los, his, seqs)
         self.num_range_deletes += len(los)
 
     # ------------------------------------------------------------- reads
@@ -90,7 +101,8 @@ class GloranIndex:
 
     def is_deleted_batch(self, keys: np.ndarray,
                          entry_seqs: np.ndarray,
-                         query_fn=None, level_cov=None) -> np.ndarray:
+                         query_fn=None, level_cov=None,
+                         count: bool = False) -> np.ndarray:
         """Batched validity probe.  ``query_fn`` optionally replaces how
         individual LSM-DRtree levels are probed (see
         ``LSMDRTree.covers_batch``); ``level_cov`` optionally supplies
@@ -99,29 +111,46 @@ class GloranIndex:
         in order — and the index only replays charging/early-exit around
         them (``LSMDRTree.covers_batch_cov``).  Other index kinds ignore
         both.  The EVE fast path always runs first: proven-valid entries
-        never touch the on-disk index either way."""
+        never touch the on-disk index either way.  ``count`` adds the
+        probe to the point-lookup counters (``counters()``) and opens
+        its ``gloran.eve`` / ``gloran.index_probe`` spans; the tree's
+        point lookups set it, and compaction, scans and the scheduler
+        do not, so their time stays under their own spans."""
         keys = np.asarray(keys, dtype=np.uint64)
         entry_seqs = np.asarray(entry_seqs, dtype=np.uint64)
+        sub = span if count else NULL_TRACER.span
         if self.eve is not None:
-            maybe = self.eve.maybe_deleted_batch(keys, entry_seqs)
+            with sub("gloran.eve", n=len(keys)):
+                maybe = self.eve.maybe_deleted_batch(keys, entry_seqs)
         else:
             maybe = np.ones(len(keys), dtype=bool)
         out = np.zeros(len(keys), dtype=bool)
         if maybe.any():
-            if level_cov is not None and isinstance(self.index, LSMDRTree):
-                out[maybe] = self.index.covers_batch_cov(
-                    keys[maybe], entry_seqs[maybe], level_cov[maybe])
-            elif query_fn is not None and isinstance(self.index, LSMDRTree):
-                out[maybe] = self.index.covers_batch(
-                    keys[maybe], entry_seqs[maybe], query_fn=query_fn)
-            elif hasattr(self.index, "covers_batch"):
-                out[maybe] = self.index.covers_batch(keys[maybe],
-                                                     entry_seqs[maybe])
-            else:
-                out[maybe] = [self.index.covers(int(k), int(s))
-                              for k, s in zip(keys[maybe],
-                                              entry_seqs[maybe])]
+            km, sm = keys[maybe], entry_seqs[maybe]
+            with sub("gloran.index_probe", n=len(km)):
+                if level_cov is not None and isinstance(self.index,
+                                                        LSMDRTree):
+                    out[maybe] = self.index.covers_batch_cov(
+                        km, sm, level_cov[maybe])
+                elif query_fn is not None and isinstance(self.index,
+                                                         LSMDRTree):
+                    out[maybe] = self.index.covers_batch(km, sm,
+                                                         query_fn=query_fn)
+                elif hasattr(self.index, "covers_batch"):
+                    out[maybe] = self.index.covers_batch(km, sm)
+                else:
+                    out[maybe] = [self.index.covers(int(k), int(s))
+                                  for k, s in zip(km, sm)]
+        if count:
+            self.lookup_probes += len(keys)
+            self.eve_maybe += int(maybe.sum())
+            self.deleted += int(out.sum())
         return out
+
+    def counters(self) -> dict:
+        """The point-lookup validity counters (see ``__init__``)."""
+        return {"lookup_probes": self.lookup_probes,
+                "eve_maybe": self.eve_maybe, "deleted": self.deleted}
 
     # ---------------------------------------------------- device views
     @property

@@ -24,6 +24,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..obs import span
 from .areas import AreaSet, UKEY
 from .disjointize import disjointize, merge_disjoint
 from .drtree import DRTree
@@ -105,12 +106,13 @@ class LSMDRTree:
     def flush(self) -> None:
         if self.buffer.size == 0:
             return
-        areas = self.buffer.drain_disjoint()
-        self.buffer.clear()
-        tree = self._make_drtree(areas)
-        self.io.write_sequential(len(areas) * 2 * self.config.key_size,
-                                 tag="index_flush")
-        self._push(0, tree)
+        with span("gloran.index_flush", n=self.buffer.size):
+            areas = self.buffer.drain_disjoint()
+            self.buffer.clear()
+            tree = self._make_drtree(areas)
+            self.io.write_sequential(len(areas) * 2 * self.config.key_size,
+                                     tag="index_flush")
+            self._push(0, tree)
         self.epoch += 1
 
     def _push(self, i: int, tree: DRTree) -> None:
@@ -282,11 +284,12 @@ class LSMRTree:
     def flush(self) -> None:
         if self.buffer.size == 0:
             return
-        areas = self.buffer.extract_all().sorted_by_lo()
-        self.buffer.clear()
-        self.io.write_sequential(len(areas) * 2 * self.config.key_size,
-                                 tag="index_flush")
-        self._push(0, areas)
+        with span("gloran.index_flush", n=self.buffer.size):
+            areas = self.buffer.extract_all().sorted_by_lo()
+            self.buffer.clear()
+            self.io.write_sequential(len(areas) * 2 * self.config.key_size,
+                                     tag="index_flush")
+            self._push(0, areas)
 
     def _push(self, i: int, areas: AreaSet) -> None:
         while len(self.levels) <= i:

@@ -53,6 +53,15 @@ def _resolve_procs(config: EngineConfig, num_shards: int) -> int:
     return min(want, num_shards) if want > 0 else 0
 
 
+def _sum_counters(docs: list) -> dict:
+    """Per-shard counter dicts -> their sums, key by key."""
+    agg: dict = {}
+    for c in docs:
+        for k, v in c.items():
+            agg[k] = agg.get(k, 0) + v
+    return agg
+
+
 def _merge_cache_snaps(snaps: list) -> dict:
     """Per-shard BlockCache snapshots -> one fleet rollup."""
     hits = sum(s["hits"] for s in snaps)
@@ -548,10 +557,7 @@ class Engine:
         # debt across the fleet (``sched.*`` metrics).
         scheds = [f["sched"] for f in fulls if f["sched"] is not None]
         if scheds:
-            agg: dict = {}
-            for c in scheds:
-                for k, v in c.items():
-                    agg[k] = agg.get(k, 0) + v
+            agg = _sum_counters(scheds)
             agg["stall_seconds"] = round(agg["stall_seconds"], 6)
             out["sched"] = agg
             m.absorb("sched", agg)
@@ -576,12 +582,16 @@ class Engine:
         # the shards, and the last recovery's timings.
         wals = [f["wal"] for f in fulls if f["wal"] is not None]
         if wals:
-            agg = {}
-            for c in wals:
-                for k, v in c.items():
-                    agg[k] = agg.get(k, 0) + v
+            agg = _sum_counters(wals)
             out["wal"] = agg
             m.absorb("wal", agg)
+        # GLORAN's point-lookup validity counters across the shards
+        # (``gloran.*`` metrics: EVE's false positives read from them).
+        glorans = [f["gloran"] for f in fulls if f["gloran"] is not None]
+        if glorans:
+            agg = _sum_counters(glorans)
+            out["gloran"] = agg
+            m.absorb("gloran", agg)
         # Shared-memory transport ledger (procs mode): bytes shipped
         # each way + the enqueue->dequeue latency histogram.
         if self._proc_pool is not None:

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 
@@ -308,6 +309,8 @@ class ShardExecutor:
             "sched": (self.scheduler.counters()
                       if self.scheduler is not None else None),
             "wal": self.wal.counters() if self.wal is not None else None,
+            "gloran": (tree.gloran.counters()
+                       if tree.gloran is not None else None),
             "lsm": {
                 "compaction_bytes": {int(i): int(b) for i, b in
                                      tree.compaction_bytes.items()},
@@ -392,8 +395,8 @@ class ShardExecutor:
         admits a launch).  None for non-GLORAN strategies."""
         t = self.tree
         if t.strategy == "gloran" and t.gloran is not None:
-            return lambda k, s: t.gloran.is_deleted_batch(
-                k, s, query_fn=self._query_drtree_level)
+            return partial(t.gloran.is_deleted_batch,
+                           query_fn=self._query_drtree_level)
         return None
 
     def get_batch(self, keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -441,17 +444,18 @@ class ShardExecutor:
         cfg = self.config
         if not cfg.use_cascade_kernel or len(keys) < cfg.kernel_min_batch:
             return None
-        view = self.registry.view(self.tree)
-        if view is None:
-            return None
-        if int(keys.max()) >= _U32_LIMIT:
-            return None
-        if resolved.any() and int(seqs[resolved].max()) >= _U32_LIMIT:
-            return None
-        with on_device(self.device):
-            maybe, hit, gl_cov, pos = cascade_lookup(
-                keys.astype(np.uint32), fold64to32(keys),
-                seqs.astype(np.uint32), resolved, view.state)
+        with span("shard.cascade", n=len(keys)):
+            view = self.registry.view(self.tree)
+            if view is None:
+                return None
+            if int(keys.max()) >= _U32_LIMIT:
+                return None
+            if resolved.any() and int(seqs[resolved].max()) >= _U32_LIMIT:
+                return None
+            with on_device(self.device):
+                maybe, hit, gl_cov, pos = cascade_lookup(
+                    keys.astype(np.uint32), fold64to32(keys),
+                    seqs.astype(np.uint32), resolved, view.state)
         self.kernels.cascade_calls += 1
         self.kernels.cascade_queries += len(keys)
         return CascadeVerdict(slots=view.slots, maybe=maybe, hit=hit,

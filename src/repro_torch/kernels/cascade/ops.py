@@ -198,15 +198,21 @@ def cascade_lookup(qkey32, qhash32, qseq32, qres, state: CascadeState):
     exact-match verdicts per level, (n, G) bool GLORAN per-level
     coverage of (key, resolved seq), and (n, L) int64 level-local
     candidate positions."""
-    with span("kernel.cascade", n=len(qkey32), levels=state.L,
-              gl_levels=state.G):
+    n = len(qkey32)
+    with span("kernel.cascade", n=n, levels=state.L, gl_levels=state.G):
         dev = state.device
-        bloom, hit, gl, pos = cascade_masks(
-            to_device(qkey32, dev), to_device(qhash32, dev),
-            to_device(qseq32, dev),
-            to_device(np.asarray(qres, bool), dev, np.int32), state)
-        bloom, hit, gl = (to_numpy(t, np.int32) for t in (bloom, hit, gl))
-        pos = to_numpy(pos, np.int32)
+        # The host's three phases.  The first copy back waits on the
+        # kernel, so on the device it starts after ``cascade.launch``
+        # opens and ends before ``cascade.copy_back`` closes.
+        with span("cascade.upload", n=n):
+            q = (to_device(qkey32, dev), to_device(qhash32, dev),
+                 to_device(qseq32, dev),
+                 to_device(np.asarray(qres, bool), dev, np.int32))
+        with span("cascade.launch", n=n):
+            bloom, hit, gl, pos = cascade_masks(*q, state)
+        with span("cascade.copy_back", n=n):
+            bloom, hit, gl, pos = (to_numpy(t, np.int32)
+                                   for t in (bloom, hit, gl, pos))
     lbits = np.arange(state.L, dtype=np.int32)
     maybe = ((bloom[:, None] >> lbits) & 1).astype(bool)
     hitm = ((hit[:, None] >> lbits) & 1).astype(bool)

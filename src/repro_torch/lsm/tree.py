@@ -285,7 +285,9 @@ class LSMTree:
         without forking the read path (``repro_torch.engine`` uses these for
         its CUDA kernels and block cache): ``bloom_fn(sstable, keys)``
         supplies filter verdicts, ``cache`` absorbs data-block charges,
-        ``validity_fn(keys, seqs)`` replaces the GLORAN validity probe,
+        ``validity_fn(keys, seqs, count=...)`` replaces the GLORAN
+        validity probe (``GloranIndex.is_deleted_batch``'s signature:
+        lookups count into its counters, scans do not),
         and ``cascade_fn(keys, resolved, seqs)`` answers EVERY level's
         filter questions in one fused launch (a ``CascadeVerdict``, or
         None to decline).  With a cascade verdict the level loop below
@@ -302,51 +304,52 @@ class LSMTree:
         out_seqs = np.zeros(n, dtype=np.uint64)
         rt_max = np.zeros(n, dtype=np.uint64)
 
-        if self.strategy == "lrr" and self.mem_rts:
-            for lo, hi, s in self.mem_rts:
-                m = (keys >= lo) & (keys < hi)
-                rt_max[m] = np.maximum(rt_max[m], np.uint64(s))
+        with span("lsm.get_mem", n=n):
+            if self.strategy == "lrr" and self.mem_rts:
+                for lo, hi, s in self.mem_rts:
+                    m = (keys >= lo) & (keys < hi)
+                    rt_max[m] = np.maximum(rt_max[m], np.uint64(s))
 
-        # Memtable: one sorted snapshot + batched binary search (skipped
-        # entirely when empty — the steady post-flush state of
-        # read-mostly serving).
-        if self.mem:
-            mk, ms, mt, mv = self._mem_sorted()
-            j = np.minimum(np.searchsorted(mk, keys), len(mk) - 1)
-            hitm = mk[j] == keys
-            jh = j[hitm]
-            resolved[hitm] = True
-            out_found[hitm] = mt[jh] == PUT
-            out_seqs[hitm] = ms[jh]
-            out_vals[hitm] = mv[jh]
-
-        # Sealed (frozen) memtables, newest first: memory-resident
-        # sorted snapshots probed with the same batched binary search,
-        # no I/O charge.  Frozen LRR tombstones fold into rt_max up
-        # front — seal boundaries are temporal, so the superset is
-        # exact (an older tombstone can't outrank a newer entry).
-        if self.frozen:
-            if self.strategy == "lrr":
-                for fz in self.frozen:
-                    for lo, hi, s in fz.rts:
-                        m = (keys >= lo) & (keys < hi)
-                        rt_max[m] = np.maximum(rt_max[m], np.uint64(s))
-            for fz in reversed(self.frozen):
-                if not len(fz.keys):
-                    continue
-                todo = ~resolved
-                if not todo.any():
-                    break
-                sub = keys[todo]
-                j = np.minimum(np.searchsorted(fz.keys, sub),
-                               len(fz.keys) - 1)
-                hitm = fz.keys[j] == sub
-                idx = np.flatnonzero(todo)[hitm]
+            # Memtable: one sorted snapshot + batched binary search (skipped
+            # entirely when empty — the steady post-flush state of
+            # read-mostly serving).
+            if self.mem:
+                mk, ms, mt, mv = self._mem_sorted()
+                j = np.minimum(np.searchsorted(mk, keys), len(mk) - 1)
+                hitm = mk[j] == keys
                 jh = j[hitm]
-                resolved[idx] = True
-                out_found[idx] = fz.types[jh] == PUT
-                out_seqs[idx] = fz.seqs[jh]
-                out_vals[idx] = fz.vals[jh]
+                resolved[hitm] = True
+                out_found[hitm] = mt[jh] == PUT
+                out_seqs[hitm] = ms[jh]
+                out_vals[hitm] = mv[jh]
+
+            # Sealed (frozen) memtables, newest first: memory-resident
+            # sorted snapshots probed with the same batched binary search,
+            # no I/O charge.  Frozen LRR tombstones fold into rt_max up
+            # front — seal boundaries are temporal, so the superset is
+            # exact (an older tombstone can't outrank a newer entry).
+            if self.frozen:
+                if self.strategy == "lrr":
+                    for fz in self.frozen:
+                        for lo, hi, s in fz.rts:
+                            m = (keys >= lo) & (keys < hi)
+                            rt_max[m] = np.maximum(rt_max[m], np.uint64(s))
+                for fz in reversed(self.frozen):
+                    if not len(fz.keys):
+                        continue
+                    todo = ~resolved
+                    if not todo.any():
+                        break
+                    sub = keys[todo]
+                    j = np.minimum(np.searchsorted(fz.keys, sub),
+                                   len(fz.keys) - 1)
+                    hitm = fz.keys[j] == sub
+                    idx = np.flatnonzero(todo)[hitm]
+                    jh = j[hitm]
+                    resolved[idx] = True
+                    out_found[idx] = fz.types[jh] == PUT
+                    out_seqs[idx] = fz.seqs[jh]
+                    out_vals[idx] = fz.vals[jh]
 
         # One fused launch answers bloom + fence + GLORAN for all
         # levels; the loop below replays resolution order around it.
@@ -354,40 +357,41 @@ class LSMTree:
         if cascade_fn is not None and not resolved.all():
             cas = cascade_fn(keys, resolved, out_seqs)
 
-        for i, lvl in enumerate(self.levels):
-            todo = ~resolved
-            if not todo.any():
-                break
-            if self.strategy == "lrr" and i < len(self.level_rts) and \
-                    len(self.level_rts[i]):
-                rt_max[todo] = np.maximum(
-                    rt_max[todo],
-                    self.level_rts[i].probe_batch(keys[todo], self.io))
-            if lvl is None or len(lvl) == 0:
-                continue
-            if cas is not None:
-                sl = int(cas.slots[i])
-                maybe = cas.maybe[todo, sl]
-                if not maybe.any():
-                    continue  # zero survivors: level skipped untouched
-                pos = cas.pos[todo, sl][maybe]
-                lvl.charge_probe(pos, self.io, cache=cache)
-                hitk = cas.hit[todo, sl][maybe]
-                sel = pos[hitk]
-                idx = np.flatnonzero(todo)[np.flatnonzero(maybe)[hitk]]
-                s, t, v = lvl.rows_at(sel)
-            else:
-                sub = keys[todo]
-                f, s, t, v = lvl.get_batch(
-                    sub, self.io, cache=cache,
-                    maybe=bloom_fn(lvl, sub) if bloom_fn is not None
-                    else None)
-                idx = np.flatnonzero(todo)[f]
-                s, t, v = s[f], t[f], v[f]
-            resolved[idx] = True
-            out_found[idx] = t == PUT
-            out_seqs[idx] = s
-            out_vals[idx] = v
+        with span("lsm.get_levels", n=n):
+            for i, lvl in enumerate(self.levels):
+                todo = ~resolved
+                if not todo.any():
+                    break
+                if self.strategy == "lrr" and i < len(self.level_rts) and \
+                        len(self.level_rts[i]):
+                    rt_max[todo] = np.maximum(
+                        rt_max[todo],
+                        self.level_rts[i].probe_batch(keys[todo], self.io))
+                if lvl is None or len(lvl) == 0:
+                    continue
+                if cas is not None:
+                    sl = int(cas.slots[i])
+                    maybe = cas.maybe[todo, sl]
+                    if not maybe.any():
+                        continue  # zero survivors: level skipped untouched
+                    pos = cas.pos[todo, sl][maybe]
+                    lvl.charge_probe(pos, self.io, cache=cache)
+                    hitk = cas.hit[todo, sl][maybe]
+                    sel = pos[hitk]
+                    idx = np.flatnonzero(todo)[np.flatnonzero(maybe)[hitk]]
+                    s, t, v = lvl.rows_at(sel)
+                else:
+                    sub = keys[todo]
+                    f, s, t, v = lvl.get_batch(
+                        sub, self.io, cache=cache,
+                        maybe=bloom_fn(lvl, sub) if bloom_fn is not None
+                        else None)
+                    idx = np.flatnonzero(todo)[f]
+                    s, t, v = s[f], t[f], v[f]
+                resolved[idx] = True
+                out_found[idx] = t == PUT
+                out_seqs[idx] = s
+                out_vals[idx] = v
 
         # Validity filtering.
         if self.strategy == "lrr":
@@ -396,13 +400,15 @@ class LSMTree:
         elif self.strategy == "gloran":
             cand = out_found
             if cand.any():
-                if cas is not None and cas.gl_cov is not None:
-                    dead = self.gloran.is_deleted_batch(
-                        keys[cand], out_seqs[cand],
-                        level_cov=cas.gl_cov[cand])
-                else:
-                    is_dead = validity_fn or self.gloran.is_deleted_batch
-                    dead = is_dead(keys[cand], out_seqs[cand])
+                ck, cs = keys[cand], out_seqs[cand]
+                with span("gloran.validity", n=len(ck)):
+                    if cas is not None and cas.gl_cov is not None:
+                        dead = self.gloran.is_deleted_batch(
+                            ck, cs, level_cov=cas.gl_cov[cand], count=True)
+                    else:
+                        is_dead = validity_fn or \
+                            self.gloran.is_deleted_batch
+                        dead = is_dead(ck, cs, count=True)
                 sub = np.flatnonzero(cand)[dead]
                 out_found[sub] = False
         return out_found, out_vals

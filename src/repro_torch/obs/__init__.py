@@ -3,7 +3,8 @@
 Three pieces, one import surface:
 
   ``span`` / ``Tracer``      begin/end spans on ``time.perf_counter``
-                             from ``Engine.submit`` down to kernel
+                             from ``Engine.submit`` through the shard's
+                             LSM tree and GLORAN index down to kernel
                              dispatch, exported as Chrome trace-event
                              JSON (loads in Perfetto with one track per
                              shard worker thread).  A process-global
@@ -16,14 +17,15 @@ Three pieces, one import surface:
   ``MetricsRegistry``        counters/gauges from every subsystem under
                              one dot-namespaced flat snapshot schema.
 
-See docs/OBSERVABILITY.md for usage and the metric namespace.
+See README.md beside this file for the spans, GLORAN's counters and
+the metric namespace.
 """
 
 from .hist import LatencyHistogram
 from .metrics import MetricsRegistry
 from .tracer import (NULL_TRACER, NullTracer, Tracer, enabled, get_tracer,
-                     instant, set_tracer, span, tracing_enabled)
+                     set_tracer, span, tracing_enabled)
 
 __all__ = ["LatencyHistogram", "MetricsRegistry", "NULL_TRACER",
-           "NullTracer", "Tracer", "enabled", "get_tracer", "instant",
-           "set_tracer", "span", "tracing_enabled"]
+           "NullTracer", "Tracer", "enabled", "get_tracer", "set_tracer",
+           "span", "tracing_enabled"]

@@ -53,9 +53,6 @@ class NullTracer:
     def span(self, name: str, **attrs) -> _NullSpan:
         return _NULL_SPAN
 
-    def instant(self, name: str, **attrs) -> None:
-        pass
-
     def events(self) -> list:
         return []
 
@@ -113,10 +110,6 @@ class Tracer:
     # ----------------------------------------------------------- record
     def span(self, name: str, **attrs) -> _Span:
         return _Span(self, name, attrs)
-
-    def instant(self, name: str, **attrs) -> None:
-        t = time.perf_counter()
-        self._record(name, t, t, attrs)
 
     def _record(self, name: str, t0: float, t1: float,
                 attrs: dict) -> None:
@@ -243,11 +236,6 @@ def span(name: str, **attrs):
     costly to compute should be guarded with ``tracing_enabled()``.
     """
     return _TRACER.span(name, **attrs)
-
-
-def instant(name: str, **attrs) -> None:
-    """Record a zero-duration marker on the global tracer."""
-    _TRACER.instant(name, **attrs)
 
 
 def tracing_enabled() -> bool:
