@@ -12,11 +12,10 @@ each of those; this buffer instead keeps the records as four flat
                           a whole engine plan step lands as one append,
   covers / covers_batch   ``searchsorted`` over a lazily maintained
                           **disjointized view** (``core.disjointize``):
-                          appends since the last probe are disjointized
-                          as one chunk and two-way merged into the view
-                          (the same streaming primitive compaction
-                          uses), so probe cost is O(log n) per query and
-                          the disjointize work is amortized over bursts,
+                          appends since the last probe are folded into
+                          the view as one chunk (``_refresh_view``), so
+                          probe cost is O(log n) per query and the
+                          disjointize work is amortized over bursts,
   drain_disjoint          the flush path: the fully-merged view, equal
                           to ``disjointize(extract_all())`` under the
                           system invariant (all live ``smin`` at the GC
@@ -32,6 +31,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..obs import span
 from .areas import AreaSet, UKEY
 from .disjointize import disjointize, merge_disjoint
 
@@ -94,17 +94,86 @@ class StagingBuffer:
     # -------------------------------------------------------------- query
     def _refresh_view(self) -> None:
         """Fold records appended since the last probe into the disjoint
-        view: one ``disjointize`` over the pending chunk, one streaming
-        two-way ``merge_disjoint`` with the existing view."""
-        if self._view_n == self.size:
+        view.  The result is ``merge_disjoint(view, disjointize(pending))``
+        array for array, got by touching only what the pending records
+        reach.
+
+        A pending record that overlaps or abuts neither a view record nor
+        another pending record is already a canonical piece of the
+        result: it is inserted where it sorts.  The others, with the view
+        records they overlap or abut, go through ``disjointize`` and
+        ``merge_disjoint``, and the merged pieces replace those view
+        records.  That is exact: the isolated records leave the
+        disjointize's runs and merge order as they were, they cover no
+        point anything else covers, and a view record no pending record
+        reaches keeps its coverage and cannot coalesce with a new piece
+        (it would have to abut it).  Where every pending record touches
+        something, all of them take that merge."""
+        a, b = self._view_n, self.size
+        if a == b:
             return
-        pend = AreaSet(self._lo[self._view_n:self.size].copy(),
-                       self._hi[self._view_n:self.size].copy(),
-                       self._smin[self._view_n:self.size].copy(),
-                       self._smax[self._view_n:self.size].copy())
-        d = disjointize(pend)
-        self._view = merge_disjoint(self._view, d) if len(self._view) else d
-        self._view_n = self.size
+        view = self._view
+        nv = len(view)
+        idx = a + np.argsort(self._lo[a:b], kind="stable")
+        lo, hi = self._lo[idx], self._hi[idx]
+        # The first view record each pending record could reach; it
+        # reaches it (overlaps or abuts it) where that one starts at or
+        # before the pending record's end.
+        first = np.searchsorted(view.hi, lo, side="left")
+        touched = ((first < nv) & (view.lo[np.minimum(first, nv - 1)] <= hi)
+                   if nv else np.zeros(b - a, dtype=bool))
+        # Pending records that overlap or abut an earlier / the next one,
+        # in lo order.
+        touched[1:] |= np.maximum.accumulate(hi)[:-1] >= lo[1:]
+        touched[:-1] |= lo[1:] <= hi[:-1]
+        with span("gloran.view_fold", n=b - a, view=nv,
+                  merged=int(np.count_nonzero(touched))):
+            self._view = self._fold(idx, touched, first, hi)
+        self._view_n = b
+
+    def _pending(self, idx: np.ndarray) -> AreaSet:
+        """Buffered records at ``idx``, as a new AreaSet."""
+        return AreaSet(self._lo[idx], self._hi[idx], self._smin[idx],
+                       self._smax[idx])
+
+    def _fold(self, idx, touched, first, hi) -> AreaSet:
+        """The view with pending records ``idx`` (in lo order, ends
+        ``hi``) folded in: the ``touched`` ones merged with the view
+        records they reach (from ``first`` to the last that starts at or
+        before their end), the rest inserted as they are."""
+        view = self._view
+        nv = len(view)
+        new = self._pending(idx[~touched])
+        at = first[~touched]  # view records before each new record
+        hit = np.zeros(0, dtype=np.int64)
+        if touched.any():
+            # The view records inside any touched record's reach.
+            start = first[touched]
+            end = np.searchsorted(view.lo, hi[touched], side="right")
+            depth = np.cumsum(np.bincount(start, minlength=nv + 1)
+                              - np.bincount(end, minlength=nv + 1))
+            hit = np.flatnonzero(depth[:nv])
+            pieces = merge_disjoint(
+                AreaSet(view.lo[hit], view.hi[hit], view.smin[hit],
+                        view.smax[hit]),
+                disjointize(self._pending(idx[touched])))
+            new = new.concat(pieces)
+            at = np.concatenate([at, np.searchsorted(view.lo, pieces.lo)])
+            o = np.argsort(new.lo, kind="stable")
+            new = AreaSet(new.lo[o], new.hi[o], new.smin[o], new.smax[o])
+            at = at[o] - np.searchsorted(hit, at[o])
+        # The new records and the view records left are key-disjoint:
+        # one gather per column places them all.
+        m = len(new)
+        at = at + np.arange(m)
+        order = np.empty(nv - len(hit) + m, dtype=np.int64)
+        rest = np.ones(len(order), dtype=bool)
+        rest[at] = False
+        order[at] = np.arange(nv, nv + m)
+        order[rest] = np.delete(np.arange(nv), hit)
+        return AreaSet(*(np.concatenate([v, w]).take(order) for v, w in (
+            (view.lo, new.lo), (view.hi, new.hi), (view.smin, new.smin),
+            (view.smax, new.smax))))
 
     @property
     def view(self) -> AreaSet:

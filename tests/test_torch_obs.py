@@ -141,6 +141,45 @@ def test_each_span_lies_inside_its_parent(run, child, parent):
         assert any(inside(c, p) for p in parents), (child, c)
 
 
+@pytest.mark.parametrize("drtree,shards", CASES, ids=IDS)
+def test_view_fold_opens_once_per_fold_inside_the_probe_or_a_flush(
+        drtree, shards):
+    """The staging buffer folds its pending records on the first probe
+    after appends (inside ``gloran.index_probe`` on the point lookups)
+    or when a flush drains it (inside ``gloran.index_flush``), with
+    integer attributes only."""
+    rng = np.random.default_rng(6)
+    keys = (rng.choice(UNIVERSE - 2, 600, replace=False).astype(np.uint64)
+            + np.uint64(1))
+    eng = make_engine(shards, drtree)
+    tr = obs.Tracer()
+    try:
+        with obs.enabled(tr):
+            for i in range(3):
+                k = keys[i * 200:(i + 1) * 200]
+                # 23 range deletes: the index buffer (16) keeps some
+                # pending past each write batch's flushes.
+                write(eng, k, k, rng.integers(1, UNIVERSE - 300, 23))
+                eng.submit(OpBatch.gets(keys[:400])).get_results()
+        folds = [s for s in tr.events() if s["name"] == "gloran.view_fold"]
+        probes = [s for s in tr.events()
+                  if s["name"] == "gloran.index_probe"]
+        flushes = [s for s in tr.events()
+                   if s["name"] == "gloran.index_flush"]
+        assert bool(folds) == drtree
+        in_probe = [f for f in folds if any(inside(f, p) for p in probes)]
+        assert len(in_probe) == (3 * shards if drtree else 0)
+        assert all(sum(inside(f, p) for f in folds) <= 1
+                   for p in probes + flushes)
+        for f in folds:
+            assert set(f["attrs"]) == {"n", "view", "merged"}
+            assert all(type(v) is int for v in f["attrs"].values())
+            assert 0 <= f["attrs"]["merged"] <= f["attrs"]["n"]
+            assert f in in_probe or any(inside(f, p) for p in flushes)
+    finally:
+        eng.close()
+
+
 def test_no_new_kernel_span_outside_a_kernel_span(run):
     """``shard.get_ms`` subtracts ``kernel.*`` spans from ``shard.get``:
     the only ``kernel.*`` spans are the wrappers', and no ``cascade.*``
