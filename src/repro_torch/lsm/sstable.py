@@ -213,6 +213,11 @@ class RangeTombstoneBlock:
     def nbytes(self) -> int:
         return len(self.starts) * self.config.range_tombstone_size
 
+    @property
+    def built(self) -> bool:
+        """Whether the step function below has been computed."""
+        return self._stab is not None
+
     def _step_fn(self) -> tuple:
         """Disjoint max-seq step function over the tombstones (lazy).
 

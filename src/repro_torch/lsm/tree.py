@@ -19,13 +19,13 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from itertools import repeat
+from itertools import chain, repeat
 
 import numpy as np
 
 from ..core.gloran import GloranConfig, GloranIndex
 from ..core.iostats import IOStats
-from ..obs import span
+from ..obs import NULL_TRACER, span
 from .format import LSMConfig, PUT, TOMBSTONE
 from .merge import empty_run, merge_runs, merge_two, newest_wins
 from .scheduler import FrozenMemtable
@@ -218,8 +218,12 @@ class LSMTree:
             self.gloran.range_delete_batch(los, his,
                                            self._next_seqs(len(los)))
         else:
-            for lo, hi in zip(los.tolist(), his.tolist()):
-                self.range_delete(int(lo), int(hi))
+            # Under LRR each range is a memtable tombstone; the seals and
+            # flushes it triggers nest inside the span.
+            sub = span if self.strategy == "lrr" else NULL_TRACER.span
+            with sub("lsm.rt_insert", n=len(los)):
+                for lo, hi in zip(los.tolist(), his.tolist()):
+                    self.range_delete(int(lo), int(hi))
 
     # -------------------------------------------------------------- reads
     def _mem_rt_cover(self, key: int) -> int:
@@ -305,10 +309,8 @@ class LSMTree:
         rt_max = np.zeros(n, dtype=np.uint64)
 
         with span("lsm.get_mem", n=n):
-            if self.strategy == "lrr" and self.mem_rts:
-                for lo, hi, s in self.mem_rts:
-                    m = (keys >= lo) & (keys < hi)
-                    rt_max[m] = np.maximum(rt_max[m], np.uint64(s))
+            if self.strategy == "lrr":
+                self._fold_mem_rts(keys, rt_max)
 
             # Memtable: one sorted snapshot + batched binary search (skipped
             # entirely when empty — the steady post-flush state of
@@ -325,15 +327,8 @@ class LSMTree:
 
             # Sealed (frozen) memtables, newest first: memory-resident
             # sorted snapshots probed with the same batched binary search,
-            # no I/O charge.  Frozen LRR tombstones fold into rt_max up
-            # front — seal boundaries are temporal, so the superset is
-            # exact (an older tombstone can't outrank a newer entry).
+            # no I/O charge.
             if self.frozen:
-                if self.strategy == "lrr":
-                    for fz in self.frozen:
-                        for lo, hi, s in fz.rts:
-                            m = (keys >= lo) & (keys < hi)
-                            rt_max[m] = np.maximum(rt_max[m], np.uint64(s))
                 for fz in reversed(self.frozen):
                     if not len(fz.keys):
                         continue
@@ -364,9 +359,12 @@ class LSMTree:
                     break
                 if self.strategy == "lrr" and i < len(self.level_rts) and \
                         len(self.level_rts[i]):
-                    rt_max[todo] = np.maximum(
-                        rt_max[todo],
-                        self.level_rts[i].probe_batch(keys[todo], self.io))
+                    blk = self.level_rts[i]
+                    sub = keys[todo]
+                    with span("lsm.rt_probe", n=len(sub), level=i,
+                              rts=len(blk), rebuilt=int(not blk.built)):
+                        rt_max[todo] = np.maximum(
+                            rt_max[todo], blk.probe_batch(sub, self.io))
                 if lvl is None or len(lvl) == 0:
                     continue
                 if cas is not None:
@@ -412,6 +410,17 @@ class LSMTree:
                 sub = np.flatnonzero(cand)[dead]
                 out_found[sub] = False
         return out_found, out_vals
+
+    def _fold_mem_rts(self, keys: np.ndarray, rt_max: np.ndarray) -> None:
+        """Fold the memtable's and the sealed memtables' LRR tombstones
+        into ``rt_max`` up front: seal boundaries are temporal, so the
+        superset is exact (an older tombstone can't outrank a newer
+        entry)."""
+        rts = [self.mem_rts, *(fz.rts for fz in self.frozen)]
+        with span("lsm.rt_mem", n=len(keys), rts=sum(map(len, rts))):
+            for lo, hi, s in chain.from_iterable(rts):
+                m = (keys >= lo) & (keys < hi)
+                rt_max[m] = np.maximum(rt_max[m], np.uint64(s))
 
     def _mem_sorted(self):
         """Key-sorted snapshot of the memtable as a 4-array run, cached
