@@ -190,6 +190,7 @@ def _restore_tree(tree, arrays, meta: dict) -> None:
     tree._mem_snap = None
     tree.mem_rts = [tuple(int(x) for x in row)
                     for row in arrays["mem_rts"].tolist()]
+    tree._mem_rt_blk = None
     tree.seq = int(meta["seq"])
     tree._sstable_seed = int(meta["sstable_seed"])
     tree.levels = []

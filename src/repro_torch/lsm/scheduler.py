@@ -65,6 +65,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..obs import span
+from .sstable import RangeTombstoneBlock
 
 # Job classes (heap key element 0).
 JOB_CASCADE = 0    # capacity-driven compaction (barrier child of a flush)
@@ -86,6 +87,10 @@ class FrozenMemtable:
     types: np.ndarray
     vals: np.ndarray
     rts: list = field(default_factory=list)  # [(lo, hi, seq)] (LRR)
+    # ``rts`` as one block, built by the first LRR get that reads it and
+    # kept (the snapshot is immutable) until the flush drops it.
+    rt_blk: RangeTombstoneBlock | None = field(default=None, repr=False,
+                                               compare=False)
 
     @property
     def min_seq(self) -> int:

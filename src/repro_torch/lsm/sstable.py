@@ -206,6 +206,16 @@ class RangeTombstoneBlock:
         z = np.zeros(0, dtype=np.uint64)
         return RangeTombstoneBlock(z, z.copy(), z.copy(), config)
 
+    @staticmethod
+    def from_tuples(rts, config: LSMConfig) -> "RangeTombstoneBlock":
+        """A block over a memtable's ``[(lo, hi, seq)]`` buffer."""
+        n = len(rts)
+        if not n:
+            return RangeTombstoneBlock.empty(config)
+        arr = np.fromiter(itertools.chain.from_iterable(rts), np.uint64,
+                          3 * n).reshape(n, 3)
+        return RangeTombstoneBlock(arr[:, 0], arr[:, 1], arr[:, 2], config)
+
     def __len__(self) -> int:
         return len(self.starts)
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from itertools import chain, repeat
+from itertools import repeat
 
 import numpy as np
 
@@ -67,6 +67,7 @@ class LSMTree:
         self.mem: dict[int, tuple[int, int, int]] = {}  # key->(seq,type,val)
         self._mem_snap = None  # cached sorted snapshot; None = stale
         self.mem_rts: list[tuple[int, int, int]] = []  # LRR buffer
+        self._mem_rt_blk = None  # mem_rts as a block; None = stale
         self.levels: list[SSTable | None] = []
         self.level_rts: list[RangeTombstoneBlock] = []
         self.seq = 0
@@ -180,6 +181,7 @@ class LSMTree:
                 self.delete_batch(keys)
         elif self.strategy == "lrr":
             self.mem_rts.append((int(lo), int(hi), self._next_seq()))
+            self._mem_rt_blk = None
             # Range tombstones are memtable entries (RocksDB): they count
             # toward the buffer and flush with it.
             if len(self.mem) + len(self.mem_rts) >= \
@@ -415,12 +417,31 @@ class LSMTree:
         """Fold the memtable's and the sealed memtables' LRR tombstones
         into ``rt_max`` up front: seal boundaries are temporal, so the
         superset is exact (an older tombstone can't outrank a newer
-        entry)."""
-        rts = [self.mem_rts, *(fz.rts for fz in self.frozen)]
-        with span("lsm.rt_mem", n=len(keys), rts=sum(map(len, rts))):
-            for lo, hi, s in chain.from_iterable(rts):
-                m = (keys >= lo) & (keys < hi)
-                rt_max[m] = np.maximum(rt_max[m], np.uint64(s))
+        entry).
+
+        Each memtable answers through its own ``RangeTombstoneBlock``,
+        probed uncharged (memtable tombstones are memory-resident): a
+        max-seq step function built by the first get after its
+        tombstones change, so a read burst between writes pays one
+        ``searchsorted`` per memtable, not a pass per tombstone.  The
+        span's ``built`` counts the tombstones whose block this call
+        builds (0 where every block was cached).
+        """
+        frozen = list(self.frozen)
+        held = [(self.mem_rts, self._mem_rt_blk),
+                *((fz.rts, fz.rt_blk) for fz in frozen)]
+        with span("lsm.rt_mem", n=len(keys),
+                  rts=sum(len(r) for r, _ in held),
+                  built=sum(len(r) for r, b in held if b is None)):
+            if self._mem_rt_blk is None:
+                self._mem_rt_blk = RangeTombstoneBlock.from_tuples(
+                    self.mem_rts, self.config)
+            for fz in frozen:
+                if fz.rt_blk is None:
+                    fz.rt_blk = RangeTombstoneBlock.from_tuples(
+                        fz.rts, self.config)
+            for blk in (self._mem_rt_blk, *(fz.rt_blk for fz in frozen)):
+                np.maximum(rt_max, blk.max_covering_batch(keys), out=rt_max)
 
     def _mem_sorted(self):
         """Key-sorted snapshot of the memtable as a 4-array run, cached
@@ -570,6 +591,7 @@ class LSMTree:
                 self.mem = {}
                 self._mem_snap = None
                 self.mem_rts = []
+                self._mem_rt_blk = None
                 self.struct_epoch += 1
         self.scheduler.on_seal()
 
@@ -592,9 +614,7 @@ class LSMTree:
                                 seed=self._sstable_seed, presorted=True)
             self._merge_into(0, run)
         if self.strategy == "lrr" and fz.rts:
-            arr = np.array(fz.rts, dtype=np.uint64)
-            rtb = RangeTombstoneBlock(arr[:, 0], arr[:, 1], arr[:, 2],
-                                      self.config)
+            rtb = RangeTombstoneBlock.from_tuples(fz.rts, self.config)
             self._ensure_rt(0)
             self.level_rts[0] = self.level_rts[0].merge(rtb)
             self.io.write_sequential(self.level_rts[0].nbytes,
@@ -613,10 +633,9 @@ class LSMTree:
                                 seed=self._sstable_seed, presorted=True)
             self._merge_into(0, run)
         if self.strategy == "lrr" and self.mem_rts:
-            arr = np.array(self.mem_rts, dtype=np.uint64)
+            rtb = RangeTombstoneBlock.from_tuples(self.mem_rts, self.config)
             self.mem_rts = []
-            rtb = RangeTombstoneBlock(arr[:, 0], arr[:, 1], arr[:, 2],
-                                      self.config)
+            self._mem_rt_blk = None
             self._ensure_rt(0)
             self.level_rts[0] = self.level_rts[0].merge(rtb)
             self.io.write_sequential(self.level_rts[0].nbytes, tag="rt_flush")

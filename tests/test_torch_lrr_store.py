@@ -197,9 +197,24 @@ def test_every_get_step_folds_its_tombstones_once(lrr):
             fold = lrr.inside("lsm.rt_mem", step)
             assert len(mem) == len(fold) == 1
             assert lrr.inside("lsm.rt_mem", mem[0]) == fold
-            assert fold[0]["attrs"] == {"n": step["attrs"]["n"],
-                                        "rts": held[shard][0]}
+            attrs = fold[0]["attrs"]
+            assert attrs == {"n": step["attrs"]["n"],
+                             "rts": held[shard][0],
+                             "built": attrs["built"]}
+            assert 0 <= attrs["built"] <= attrs["rts"]
     assert max(s["attrs"]["rts"] for s in lrr.named("lsm.rt_mem")) > 0
+
+
+def test_a_fold_builds_only_after_a_write(lrr):
+    """``built``: each round's first get batch, the first after its
+    range deletes, rebuilds some memtable's step function; the second,
+    with no write between, finds every one cached."""
+    steps = lrr.get_steps()
+    for r in range(ROUNDS):
+        first, second = (
+            [lrr.inside("lsm.rt_mem", step)[0]["attrs"]["built"]
+             for step in steps[2 * r + k].values()] for k in (0, 1))
+        assert sum(first) > 0 and second == [0] * SHARDS
 
 
 def test_each_tombstone_block_probe_lies_in_the_level_loop(lrr):
@@ -276,7 +291,8 @@ def test_a_lookup_before_a_seal_is_flushed_folds_its_tombstones():
     with obs.enabled(tracer):
         found, vals = bg.get_batch(keys)
     fold = [s for s in tracer.events() if s["name"] == "lsm.rt_mem"]
-    assert [s["attrs"] for s in fold] == [{"n": len(keys), "rts": want}]
+    assert [s["attrs"] for s in fold] == [{"n": len(keys), "rts": want,
+                                           "built": want}]
     f0, v0 = trees[0].get_batch(keys)
     assert found.tobytes() == f0.tobytes() and 0 < found.sum() < len(keys)
     assert vals[found].tobytes() == v0[f0].tobytes()
