@@ -7,7 +7,7 @@ and this checkout; without them it exits non-zero before printing any
 result.  Phases, each of which fails the run on any error:
 
 1. Environment: the card's name and power limit, torch and CUDA
-   versions, and the seconds the twelve kernels took to build (one
+   versions, and the seconds the nine kernels took to build (one
    nvcc per source, all started together).
 2. The store's slice: an 8-shard hash-partitioned GLORAN
    ``Engine`` on ``cuda`` with the paper's default ``LSMConfig`` loads
@@ -16,8 +16,8 @@ result.  Phases, each of which fails the run on any error:
    batches of 8192 keys (half loaded, half uniform).  Results must
    equal a plain model of the op stream (last put wins; a range delete
    kills every older put it covers); every shard sub-batch must take
-   one ``cascade_sm90`` launch covering G >= 1 GLORAN levels and no
-   ``cascade`` launch, and every ``merge_ranks`` call of the load one
+   one ``cascade_sm90`` launch covering G >= 1 GLORAN levels, and
+   every ``merge_ranks`` call of the load one
    ``merge_path_sm90`` launch and no ``merge_rank`` launch.
    Bottom-compaction GC leaves
    the DR-tree levels empty at the end of the load, so range deletes
@@ -104,40 +104,38 @@ result.  Phases, each of which fails the run on any error:
    the kernel counters count.
 3. The per-level route: the same lookups with the cascade off must
    return the same results, every per-level launch a ``bloom_sm90`` or
-   ``interval_sm90`` one (none of the first ``bloom`` or ``interval``),
-   as many as the ``KernelCounters`` count gated calls.
+   ``interval_sm90`` one, as many as the ``KernelCounters`` count gated
+   calls.
 4. Each store kernel against its plain PyTorch version on the card, at
    the shapes the slice gives it, bit-exact, with its median time, the
    plain version's time, its bound and, for the merge kernels, the
-   ``torch.searchsorted`` pair as a yardstick.  Both cascade kernels
-   take shard 0's sub-batch of a real lookup batch as the engine's
+   ``torch.searchsorted`` pair as a yardstick.  ``cascade_sm90`` takes
+   shard 0's sub-batch of a real lookup batch as the engine's
    partitioner and memtable probe make it (request order) against
-   shard 0's pack, and are timed there, on the same keys sorted, on the
+   shard 0's pack, and is timed there, on the same keys sorted, on the
    mixed batch of earlier runs (half uniform keys sorted, half level
    keys in random order), and rotated over the eight shards' sub-batches
-   and packs; ``cascade_sm90`` also with 8, 16 and 32 lanes, beside an
-   empty kernel on its grid (the launch floor).  Keys set to area
-   starts must leave both exact and fail ``cascade_sm90`` with its
-   GLORAN stab at lower_bound (a planted fault); both run at n = 8192
+   and packs, beside an empty kernel on its grid (the launch floor).
+   Keys set to area starts must leave it exact and fail it with its
+   GLORAN stab at lower_bound (a planted fault); it runs at n = 8192
    too.  Both merge kernels take runs of 2^19 and 2^16 with cross-run
    duplicates, where ``merge_path_sm90`` with ties broken b-first (a
    planted fault) must fail, then a sweep: (2^12, 2^16), (2^16, 2^19),
    (2^19, 2^22), all keys equal, disjoint runs both ways, a run of one
-   both ways, ragged lengths, and 0 and 0xFFFFFFFE present.  Bloom
-   and interval: both generations bit-exact and timed in turns on the
+   both ways, ragged lengths, and 0 and 0xFFFFFFFE present.
+   ``bloom_sm90`` and ``interval_sm90``: bit-exact and timed on the
    route's sub-batches captured from a per-level ``get_batch``, on n =
    1024 and 8192 keys against the deepest level's filter and a 3 M-key
    filter (10 bits a key, 6 hashes), and on n = 1024 and 8192 stabs
    against the cell's largest DR-tree level and a level of 2^20 areas,
-   beside an empty kernel on the new kernel's grid; ``bloom_sm90``
-   probing H - 1
-   seeds must fail on absent keys and ``interval_sm90`` searching
+   beside an empty kernel on the kernel's grid; ``bloom_sm90`` probing
+   H - 1 seeds must fail on absent keys and ``interval_sm90`` searching
    lower_bound at area starts (planted faults); then a sweep of edge
-   cases (``bloom_cases``, ``interval_cases``) through every kernel.
+   cases (``bloom_cases``, ``interval_cases``) through both kernels.
    Empty kernels on ``merge_path_sm90``'s grid give its floor too.
-   Both interval kernels bit-exact and timed in turns on phase 2b's
-   captured scan sub-batches (rotated, and the smallest, median and
-   largest beside the floor and the bound).
+   ``interval_sm90`` bit-exact and timed on phase 2b's captured scan
+   sub-batches (rotated, and the smallest, median and largest beside
+   the floor and the bound).
 5. The model stack's slice: zamba2-7b at full width and depth (81
    layers, d_model 3584, random weights from ``--seed``).  In f32, a
    prefill of 2 x 128 tokens must launch the CUDA-core SSD kernel 81
@@ -301,14 +299,8 @@ LOOKUP_BATCHES = 64
 LOOKUP_BATCH = 8192
 STORE_KEYS = 3_000_000  # the store cell's puts (the reference's MAX_PACK_*)
 KERNEL_SOURCES = {
-    "cascade": ("src/repro_torch/csrc/cascade.cu",
-                "src/repro/kernels/cascade/kernel.py:125"),
     "merge_rank": ("src/repro_torch/csrc/merge_rank.cu",
                    "src/repro/kernels/merge/kernel.py:53"),
-    "bloom": ("src/repro_torch/csrc/bloom.cu",
-              "src/repro/kernels/bloom/kernel.py:52"),
-    "interval": ("src/repro_torch/csrc/interval.cu",
-                 "src/repro/kernels/interval/kernel.py:61"),
     "ssd": ("src/repro_torch/csrc/ssd.cu",
             "src/repro/kernels/ssd/kernel.py:49"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -566,15 +558,13 @@ def report_lookups(tag, lat, card) -> None:
         f"{ms[int(0.99 * (len(ms) - 1))]:.3f} ms {card}")
 
 
-def check_cascade_path(eng, kc0, kc1, launches: dict, shards) -> list:
-    """Every shard sub-batch took exactly one ``cascade_sm90`` launch and
-    no ``cascade`` launch (``launches``: the window's counts); returns
-    the shards' cascade views."""
+def check_cascade_path(eng, kc0, kc1, launches: int, shards) -> list:
+    """Every shard sub-batch took exactly one ``cascade_sm90`` launch
+    (``launches``: the window's count); returns the shards' cascade
+    views."""
     sub_batches = LOOKUP_BATCHES * shards
     calls = kc1.cascade_calls - kc0.cascade_calls
-    assert calls == sub_batches == launches["cascade_sm90"], \
-        (calls, sub_batches, launches)
-    assert launches["cascade"] == 0, launches
+    assert calls == sub_batches == launches, (calls, sub_batches, launches)
     views = [sh.registry.view(sh.tree) for sh in eng.shards]
     assert all(v is not None and v.state.G >= 1 for v in views), views
     return views
@@ -846,33 +836,29 @@ def scan_phase(eng, live: np.ndarray, card: str) -> dict:
 
 
 def scan_interval_times(eng, stabs, card) -> dict:
-    """``interval_sm90`` and the first ``interval`` kernel bit-exact
-    against the plain version on every captured scan sub-batch, then
-    timed in turns: rotated over them all, and on the smallest, median
-    and largest, each beside the launch floor and its bytes bound."""
+    """``interval_sm90`` bit-exact against the plain version on every
+    captured scan sub-batch, then timed: rotated over them all, and on
+    the smallest, median and largest, each beside the launch floor and
+    its bytes bound."""
     from repro_torch.kernels.interval import ops as iops
     from repro_torch.kernels.interval.ops import interval_query
     from repro_torch.kernels.interval.ref import interval_query_ref
     for x in stabs:
-        want = interval_query_ref(*x)
-        assert same(iops._launch_simt(*x), want), "interval on a scan"
-        assert same(interval_query(*x), want), "interval_sm90 on a scan"
+        assert same(interval_query(*x), interval_query_ref(*x)), \
+            "interval_sm90 on a scan"
     order = sorted(stabs, key=lambda x: x[0].numel())
-    times = {"rotated": in_turns(rotate(iops._launch_simt, stabs),
-                                 rotate(interval_query, stabs))}
+    times = {"rotated": time_kernel_ms(rotate(interval_query, stabs))}
     for tag, x in (("smallest", order[0]), ("median", order[len(order) // 2]),
                    ("largest", order[-1])):
         n, m = x[0].numel(), x[2].numel()
-        t = in_turns(lambda: iops._launch_simt(*x),
-                     lambda: interval_query(*x))
+        t = {"ms": time_kernel_ms(lambda: interval_query(*x))}
         t["floor"] = time_kernel_ms(lambda: iops._launch_floor(n, x[0].device))
         by = 12 * n + SECTOR * (min(search_sectors(m, n), m // 8 + 1) + 3 * n)
         t.update(n=n, areas=m, bound=by / HBM_BYTES_PER_S * 1e3)
         times[tag] = t
     ns = [x[0].numel() for x in order]
-    log(f"interval on the scans' {len(stabs)} captured sub-batches (n "
-        f"{ns[0]}..{ns[-1]}, median {ns[len(ns) // 2]}), both bit-exact; ms "
-        f"as old (interval) / new (interval_sm90) in turns: "
+    log(f"interval_sm90 on the scans' {len(stabs)} captured sub-batches (n "
+        f"{ns[0]}..{ns[-1]}, median {ns[len(ns) // 2]}), bit-exact; ms: "
         f"{json.dumps(times)} {card}")
     return times
 
@@ -922,8 +908,7 @@ def scheduler_phase(keys, los, tail, batches, live, inline, scans,
     kc = eng.kernel_counters
     assert launches["merge_path_sm90"] == kc.merge_calls > 0 and \
         launches["merge_rank"] == 0, (launches, kc)
-    assert launches["cascade_sm90"] == kc.cascade_calls and \
-        launches["cascade"] == 0, (launches, kc)
+    assert launches["cascade_sm90"] == kc.cascade_calls, (launches, kc)
     assert not {k: v for k, v in launches.items() if v and k not in (
         "merge_path_sm90", "cascade_sm90", "interval_sm90")}, launches
     sched = eng.stats()["sched"]
@@ -1720,7 +1705,7 @@ def kill_phase(keys, los, seed: int, card: str,
 
 def store_phases(card: str, seed: int) -> list[dict]:
     """Phases 2-4: the store's slice (with the scheduler, durable and
-    procs stores), its per-level route and its eight kernels against
+    procs stores), its per-level route and its five kernels against
     their plain versions; returns their records."""
     from repro_torch.kernels import native
 
@@ -1751,8 +1736,8 @@ def store_phases(card: str, seed: int) -> list[dict]:
     log(f"results equal the model on {LOOKUP_BATCHES * LOOKUP_BATCH} "
         f"lookups ({sum(int(f.sum()) for f, _ in results)} found)")
     views = check_cascade_path(
-        eng, kc0, kc1, {k: main_launches[k] - load_launches[k]
-                        for k in ("cascade", "cascade_sm90")}, shards)
+        eng, kc0, kc1, main_launches["cascade_sm90"]
+        - load_launches["cascade_sm90"], shards)
     # One merge_path_sm90 launch a merge_ranks call, none of merge_rank.
     merges = kc1.merge_calls - kc_start.merge_calls
     assert merges > 0 and main_launches["merge_path_sm90"] == merges \
@@ -1780,7 +1765,7 @@ def store_phases(card: str, seed: int) -> list[dict]:
     report_lookups(f"lookups after {los_all.size - los.size} more range "
                    "deletes", lat, card)
     check_results(results, batches, keys, los_all)
-    views = check_cascade_path(eng, kc2, kc3, main2, shards)
+    views = check_cascade_path(eng, kc2, kc3, main2["cascade_sm90"], shards)
     areas = [v.state.gl_cnt.tolist() for v in views]
     assert all(sum(a) > 0 for a in areas), areas
     main_launches["cascade_sm90"] += main2["cascade_sm90"]
@@ -1979,12 +1964,12 @@ def at_area_starts(q, st, rng):
 
 def cascade_checks(eng, views, batches, mixed_keys, launches, card,
                    rng) -> list[dict]:
-    """Both cascade kernels against the plain version on shard 0's
+    """``cascade_sm90`` against the plain version on shard 0's
     request-order sub-batch of a real lookup batch; timed there, on the
-    same keys sorted, on the earlier runs' batch ``mixed_keys``, and rotated
-    over the eight shards' sub-batches and packs as the path runs them,
-    beside an empty kernel's launch floor; the lane-group sizes; the
-    planted fault; a whole batch of 8192 keys."""
+    same keys sorted, on the earlier runs' batch ``mixed_keys``, and
+    rotated over the eight shards' sub-batches and packs as the path
+    runs them, beside an empty kernel's launch floor; the planted fault;
+    a whole batch of 8192 keys."""
     from repro_torch.core.eve import fold64to32
     from repro_torch.kernels.cascade import ops as cops
     from repro_torch.kernels.cascade.ref import cascade_ref
@@ -2004,50 +1989,32 @@ def cascade_checks(eng, views, batches, mixed_keys, launches, card,
                  to_device(np.zeros(len(mixed_keys)), dev, np.int32))}
     rot = [(subs[s], states[s]) for s in range(len(states))]
     by = cascade_bytes(st, tree, q[1].cpu().numpy().view(np.uint32))
-    old = check_kernel("cascade", launches["cascade"],
-                       lambda: cops._launch_simt(*q, st),
-                       lambda: cascade_ref(*q, st), by, card)
-    new = check_kernel("cascade_sm90", launches["cascade_sm90"],
+    rec = check_kernel("cascade_sm90", launches["cascade_sm90"],
                        lambda: cops.cascade_masks(*q, st),
                        lambda: cascade_ref(*q, st), by, card)
-    new["simt_ms"] = old["ms"]
-    new["lanes"] = cops.LANES
-    new["lanes_ms"] = {}
-    for w in (8, 16, 32):
-        assert same(cops._launch_sm90(*q, st, lanes=w),
-                    cascade_ref(*q, st)), w
-        new["lanes_ms"][w] = time_kernel_ms(
-            lambda: cops._launch_sm90(*q, st, lanes=w))
-    for rec, fn in ((old, cops._launch_simt), (new, cops.cascade_masks)):
-        for key, x in inputs.items():
-            assert same(fn(*x, st), cascade_ref(*x, st)), (rec["name"], key)
-            rec[f"{key}_ms"] = time_kernel_ms(lambda: fn(*x, st))
-        turn = itertools.count()
+    for key, x in inputs.items():
+        assert same(cops.cascade_masks(*x, st), cascade_ref(*x, st)), key
+        rec[f"{key}_ms"] = time_kernel_ms(lambda: cops.cascade_masks(*x, st))
+    turn = itertools.count()
 
-        def rotated(fn=fn):
-            x, state = rot[next(turn) % len(rot)]
-            return fn(*x, state)
-        rec["rotated_ms"] = time_kernel_ms(rotated, reps=8 * len(rot))
-    new["floor_ms"] = time_kernel_ms(lambda: cops._launch_floor(n, st))
-    log(f"cascade, ms a launch as cascade / cascade_sm90: shard 0's "
-        f"request-order sub-batch (n = {n}, L = {st.L}, G = {st.G}) "
-        f"{old['ms']:.6f} / {new['ms']:.6f}; the same keys sorted "
-        f"{old['sorted_ms']:.6f} / {new['sorted_ms']:.6f}; the mixed batch "
-        f"(n = {len(mixed_keys)}) {old['mixed_ms']:.6f} / "
-        f"{new['mixed_ms']:.6f}; rotated over {len(rot)} shards' sub-batches"
-        f" and packs {old['rotated_ms']:.6f} / {new['rotated_ms']:.6f}; "
-        f"cascade_sm90 with 8/16/32 lanes "
-        f"{', '.join(f'{v:.6f}' for v in new['lanes_ms'].values())} "
-        f"(shipped: {cops.LANES}); an empty kernel on its grid (launch "
-        f"floor, a reading) {new['floor_ms']:.6f}; bytes bound "
-        f"{new['bound_ms']:.6f} {card}")
+    def rotated():
+        x, state = rot[next(turn) % len(rot)]
+        return cops.cascade_masks(*x, state)
+    rec["rotated_ms"] = time_kernel_ms(rotated, reps=8 * len(rot))
+    rec["floor_ms"] = time_kernel_ms(lambda: cops._launch_floor(n, st))
+    log(f"cascade_sm90, ms a launch: shard 0's request-order sub-batch "
+        f"(n = {n}, L = {st.L}, G = {st.G}) {rec['ms']:.6f}; the same keys "
+        f"sorted {rec['sorted_ms']:.6f}; the mixed batch (n = "
+        f"{len(mixed_keys)}) {rec['mixed_ms']:.6f}; rotated over "
+        f"{len(rot)} shards' sub-batches and packs {rec['rotated_ms']:.6f}; "
+        f"an empty kernel on its grid (launch floor, a reading) "
+        f"{rec['floor_ms']:.6f}; bytes bound {rec['bound_ms']:.6f} {card}")
 
-    # Keys at area starts: both kernels exact, the planted fault caught.
+    # Keys at area starts: the kernel exact, the planted fault caught.
     qa = at_area_starts(q, st, rng)
     want = cascade_ref(*qa, st)
     assert want[2].any(), "no key at an area start is covered"
     assert same(cops.cascade_masks(*qa, st), want)
-    assert same(cops._launch_simt(*qa, st), want)
     wrong = cops._launch_sm90(*qa, st, planted_fault=True)
     diff = int((wrong[2] != want[2]).sum())
     assert diff > 0, "a GLORAN stab at lower_bound passes the check"
@@ -2055,24 +2022,17 @@ def cascade_checks(eng, views, batches, mixed_keys, launches, card,
         f"{n} coverage masks differ at area starts: rejected")
 
     # n = 8192: a whole lookup batch against shard 0's pack, in request
-    # order, with each lane count (the sub-batch size of ROADMAP A2).
+    # order (the sub-batch size of ROADMAP A2).
     keys = batches[1]
     m = len(keys)
     big = (to_device(keys, dev), to_device(fold64to32(keys), dev),
            to_device(np.zeros(m), dev), to_device(np.zeros(m), dev, np.int32))
-    want = cascade_ref(*big, st)
-    assert same(cops._launch_simt(*big, st), want), "cascade at n = 8192"
-    lanes_ms = {}
-    for w in (8, 16, 32):
-        assert same(cops._launch_sm90(*big, st, lanes=w), want), w
-        lanes_ms[w] = time_kernel_ms(lambda: cops._launch_sm90(*big, st,
-                                                               lanes=w))
-    new["n8192_ms"] = lanes_ms[cops.LANES]
-    old["n8192_ms"] = time_kernel_ms(lambda: cops._launch_simt(*big, st))
-    log(f"cascade at n = {m}: both kernels bit-exact; cascade "
-        f"{old['n8192_ms']:.6f} ms, cascade_sm90 with 8/16/32 lanes "
-        f"{', '.join(f'{v:.6f}' for v in lanes_ms.values())} ms {card}")
-    return [old, new]
+    assert same(cops.cascade_masks(*big, st), cascade_ref(*big, st)), \
+        "cascade_sm90 at n = 8192"
+    rec["n8192_ms"] = time_kernel_ms(lambda: cops.cascade_masks(*big, st))
+    log(f"cascade_sm90 at n = {m}: bit-exact; {rec['n8192_ms']:.6f} ms "
+        f"{card}")
+    return [rec]
 
 
 def merge_inputs(rng, na: int, nb: int):
@@ -2335,15 +2295,6 @@ def capture_route(eng, batch: np.ndarray):
     return blooms, stabs
 
 
-def in_turns(old, new) -> dict:
-    """Device ms on one input of the first kernel and the new one in
-    turns (old, new, new, old; each the mean of its two readings)."""
-    t = {"old": [time_kernel_ms(old)], "new": [time_kernel_ms(new)]}
-    t["new"].append(time_kernel_ms(new))
-    t["old"].append(time_kernel_ms(old))
-    return {k: statistics.fmean(v) for k, v in t.items()}
-
-
 def rotate(fn, inputs: list):
     """A call of fn that takes the next of ``inputs`` each time."""
     turn = itertools.count()
@@ -2351,10 +2302,10 @@ def rotate(fn, inputs: list):
 
 
 def bloom_checks(eng, qk, launches, card, rng, blooms) -> dict:
-    """``bloom`` and ``bloom_sm90`` against the plain
-    version and timed in turns on the route's captured sub-batches, on
-    n = 1024 and 8192 keys against the deepest level's filter and a
-    3 M-key filter; the planted fault; the sweep."""
+    """``bloom_sm90`` against the plain version and timed on the route's
+    captured sub-batches, on n = 1024 and 8192 keys against the deepest
+    level's filter and a 3 M-key filter; the planted fault; the
+    sweep."""
     from repro_torch.core.eve import BloomBits, fold64to32
     from repro_torch.kernels.bloom import ops as bops
     from repro_torch.kernels.bloom.ops import bloom_probe
@@ -2391,42 +2342,32 @@ def bloom_checks(eng, qk, launches, card, rng, blooms) -> dict:
     def plain(k, w, m, s):
         return bloom_probe_ref(k, w, m_bits=m, seeds=s)
 
-    for x in blooms:  # every captured sub-batch, every kernel exact
-        want = plain(*x)
-        assert same(bops._launch_simt(*x), want)
-        assert same(shipped(*x), want)
+    for x in blooms:  # every captured sub-batch exact
+        assert same(shipped(*x), plain(*x))
     ns = sorted(x[0].numel() for x in blooms)
-    times = {"route": in_turns(rotate(bops._launch_simt, blooms),
-                               rotate(shipped, blooms))}
-    log(f"bloom, the route's {len(blooms)} captured sub-batches (n "
+    times = {"route": time_kernel_ms(rotate(shipped, blooms))}
+    log(f"bloom_sm90, the route's {len(blooms)} captured sub-batches (n "
         f"{ns[0]}..{ns[-1]}, median {ns[len(ns) // 2]}), rotated: "
-        f"{json.dumps(times['route'])} ms {card}")
+        f"{times['route']:.6f} ms {card}")
     for name, (qh, bb, x) in inputs.items():
-        want = plain(*x)
-        assert same(bops._launch_simt(*x), want), name
-        assert same(shipped(*x), want), name
+        assert same(shipped(*x), plain(*x)), name
         n = len(qh)
-        times[name] = in_turns(lambda: bops._launch_simt(*x),
-                               lambda: shipped(*x))
+        times[name] = {"ms": time_kernel_ms(lambda: shipped(*x))}
         times[name]["floor"] = time_kernel_ms(
             lambda: bops._launch_floor(n, dev))
         times[name]["bound"] = (8 * n + SECTOR * bloom_probe_counts(
             qh, bb.words, bb.m_bits, bb.seeds)) / HBM_BYTES_PER_S * 1e3
-        log(f"bloom, {name} (H = {len(bb.seeds)}, {bb.m_bits} bits): "
-            f"both bit-exact; {json.dumps(times[name])} ms {card}")
+        log(f"bloom_sm90, {name} (H = {len(bb.seeds)}, {bb.m_bits} bits): "
+            f"bit-exact; {json.dumps(times[name])} ms {card}")
 
     # The headline input of earlier runs: one shard's mixed batch.
     qh, bb, x = inputs["deepest n=1024"]
     by = 8 * len(qh) + SECTOR * bloom_probe_counts(qh, bb.words, bb.m_bits,
                                                    bb.seeds)
-    old = check_kernel("bloom", launches["bloom"],
-                       lambda: bops._launch_simt(*x), lambda: plain(*x), by,
-                       card)
-    new = check_kernel("bloom_sm90", launches["bloom_sm90"],
+    rec = check_kernel("bloom_sm90", launches["bloom_sm90"],
                        lambda: shipped(*x), lambda: plain(*x), by, card)
-    new["simt_ms"] = old["ms"]
-    new["floor_ms"] = times["deepest n=1024"]["floor"]
-    new["inputs_ms"] = times
+    rec["floor_ms"] = times["deepest n=1024"]["floor"]
+    rec["inputs_ms"] = times
 
     # Planted fault: H - 1 seeds pass absent keys the filter rejects.
     qa = to_device(fold64to32(rng.integers(0, 1 << 62, 8192,
@@ -2441,22 +2382,20 @@ def bloom_checks(eng, qk, launches, card, rng, blooms) -> dict:
     fails = []
     for name, k, w, m_bits, seeds in bloom_cases(rng):
         x = (to_device(k, dev), to_device(w, dev), m_bits, seeds)
-        want = plain(*x)
-        ok = {"bloom": same(bops._launch_simt(*x), want),
-              "bloom_sm90": same(shipped(*x), want)}
-        if not all(ok.values()):
-            fails.append((name, ok))
-        log(f"bloom sweep {name} (n = {len(k)}, H = {len(seeds)}, "
+        ok = same(shipped(*x), plain(*x))
+        if not ok:
+            fails.append(name)
+        log(f"bloom_sm90 sweep {name} (n = {len(k)}, H = {len(seeds)}, "
             f"m_bits = {m_bits}): bit-exact {ok}")
-    assert not fails, f"bloom kernels differ from the plain version: {fails}"
-    return {"old": old, "new": new}
+    assert not fails, f"bloom_sm90 differs from the plain version: {fails}"
+    return rec
 
 
 def interval_checks(eng, launches, card, rng, stabs) -> dict:
-    """``interval`` and ``interval_sm90`` against the plain version and
-    timed in turns on the route's captured sub-batches, on n = 1024 and
-    8192 stabs against the cell's largest DR-tree level and a level of
-    2^20 areas; the planted fault; the sweep."""
+    """``interval_sm90`` against the plain version and timed on the
+    route's captured sub-batches, on n = 1024 and 8192 stabs against the
+    cell's largest DR-tree level and a level of 2^20 areas; the planted
+    fault; the sweep."""
     from repro_torch.kernels.interval import ops as iops
     from repro_torch.kernels.interval.ops import interval_query
     from repro_torch.kernels.interval.ref import interval_query_ref
@@ -2472,15 +2411,12 @@ def interval_checks(eng, launches, card, rng, stabs) -> dict:
               "2^20 areas": (tuple(to_device(c, dev) for c in big), big)}
 
     for x in stabs:
-        want = interval_query_ref(*x)
-        assert same(iops._launch_simt(*x), want)
-        assert same(interval_query(*x), want)
+        assert same(interval_query(*x), interval_query_ref(*x))
     ns = sorted(x[0].numel() for x in stabs)
-    times = {"route": in_turns(rotate(iops._launch_simt, stabs),
-                               rotate(interval_query, stabs))}
-    log(f"interval, the route's {len(stabs)} captured sub-batches (n "
+    times = {"route": time_kernel_ms(rotate(interval_query, stabs))}
+    log(f"interval_sm90, the route's {len(stabs)} captured sub-batches (n "
         f"{ns[0]}..{ns[-1]}, areas {sorted({x[2].numel() for x in stabs})})"
-        f", rotated: {json.dumps(times['route'])} ms {card}")
+        f", rotated: {times['route']:.6f} ms {card}")
     inputs = {}
     for lname, (cols, host) in levels.items():
         m = cols[0].numel()
@@ -2488,34 +2424,27 @@ def interval_checks(eng, launches, card, rng, stabs) -> dict:
             k, q = stab_queries(rng, host, n)
             x = (to_device(k, dev), to_device(q, dev), *cols)
             want = interval_query_ref(*x)
-            assert same(iops._launch_simt(*x), want), lname
             assert same(interval_query(*x), want), (lname, n)
             name = f"{lname} n={n}"
             inputs[name] = x
-            times[name] = in_turns(lambda: iops._launch_simt(*x),
-                                   lambda: interval_query(*x))
+            times[name] = {"ms": time_kernel_ms(lambda: interval_query(*x))}
             times[name]["floor"] = time_kernel_ms(
                 lambda: iops._launch_floor(n, dev))
             by = 12 * n + SECTOR * (min(search_sectors(m, n), m // 8 + 1)
                                     + 3 * n)
             times[name]["bound"] = by / HBM_BYTES_PER_S * 1e3
-            log(f"interval, {name} (padded to {m}, {int(want.sum())} "
-                f"covered): both bit-exact; {json.dumps(times[name])} ms "
-                f"{card}")
+            log(f"interval_sm90, {name} (padded to {m}, {int(want.sum())} "
+                f"covered): bit-exact; {json.dumps(times[name])} ms {card}")
 
     name = next(iter(inputs))  # the cell's level at n = 1024
     x = inputs[name]
     n, m = x[0].numel(), x[2].numel()
     by = 12 * n + SECTOR * (min(search_sectors(m, n), m // 8 + 1) + 3 * n)
-    old = check_kernel("interval", launches["interval"],
-                       lambda: iops._launch_simt(*x),
-                       lambda: interval_query_ref(*x), by, card)
-    new = check_kernel("interval_sm90", launches["interval_sm90"],
+    rec = check_kernel("interval_sm90", launches["interval_sm90"],
                        lambda: interval_query(*x),
                        lambda: interval_query_ref(*x), by, card)
-    new["simt_ms"] = old["ms"]
-    new["floor_ms"] = times[name]["floor"]
-    new["inputs_ms"] = times
+    rec["floor_ms"] = times[name]["floor"]
+    rec["inputs_ms"] = times
 
     # Planted fault: lower_bound misses keys at area starts.
     lo_h = to_numpy(x[2])
@@ -2536,20 +2465,19 @@ def interval_checks(eng, launches, card, rng, stabs) -> dict:
         x = (to_device(k, dev), to_device(q, dev),
              *(to_device(c, dev) for c in cols))
         want = interval_query_ref(*x)
-        ok = {"interval": same(iops._launch_simt(*x), want),
-              "interval_sm90": same(interval_query(*x), want)}
-        if not all(ok.values()):
-            fails.append((cname, ok))
-        log(f"interval sweep {cname} (n = {len(k)}, {len(cols[0])} areas, "
-            f"{int(want.sum())} covered): bit-exact {ok}")
-    assert not fails, f"interval kernels differ from the plain version: {fails}"
-    return {"old": old, "new": new}
+        ok = same(interval_query(*x), want)
+        if not ok:
+            fails.append(cname)
+        log(f"interval_sm90 sweep {cname} (n = {len(k)}, {len(cols[0])} "
+            f"areas, {int(want.sum())} covered): bit-exact {ok}")
+    assert not fails, f"interval_sm90 differs from the plain version: {fails}"
+    return rec
 
 
 def filter_checks(eng, batches, qk, launches, card, rng) -> list[dict]:
     """Phase 4's bloom and interval part: the route's sub-batches
     captured from per-level ``get_batch`` calls (outside the counted
-    window) until both kernels have some, then both kernel pairs."""
+    window) until both kernels have some, then both kernels."""
     blooms, stabs = [], []
     for batch in batches:
         b, i = capture_route(eng, batch)
@@ -2558,9 +2486,8 @@ def filter_checks(eng, batches, qk, launches, card, rng) -> list[dict]:
         if blooms and stabs:
             break
     assert blooms and stabs, (len(blooms), len(stabs))
-    b = bloom_checks(eng, qk, launches, card, rng, blooms)
-    i = interval_checks(eng, launches, card, rng, stabs)
-    return [b["old"], i["old"], b["new"], i["new"]]
+    return [bloom_checks(eng, qk, launches, card, rng, blooms),
+            interval_checks(eng, launches, card, rng, stabs)]
 
 
 # ---------------------------------------------------------- model phase

@@ -2,14 +2,14 @@
 // seeds of the bit at mix32(key, seed) % m_bits of one filter.
 //
 // Replaces src/repro/kernels/bloom/kernel.py::bloom_probe_pallas (TPU),
-// and computes exactly what kernels/bloom/ref.py::bloom_probe_ref and
-// csrc/bloom.cu compute.
+// and computes exactly what kernels/bloom/ref.py::bloom_probe_ref
+// computes.
 //
 // Bound: the bytes bound (keys read, verdicts written, one 32-byte
 // sector a probe) lies far below the launch floor at the path's sizes;
 // what is left is the latency of the probe chain and how the probes
-// spread over the SMs.  csrc/bloom.cu stops at a key's first unset bit,
-// so each word load waits for the verdict of the one before it: a key
+// spread over the SMs.  A probe that stops at a key's first unset bit
+// makes each word load wait for the verdict of the one before it: a key
 // in the filter (or a false positive) pays H serial L2 round trips, and
 // a `%` on a runtime divisor (~20 instructions) sits in front of each.
 // Here:

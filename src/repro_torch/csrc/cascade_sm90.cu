@@ -1,23 +1,22 @@
-// Fused point-lookup cascade for Hopper: a group of W lanes per
-// (query, level) pair, every level of a query in flight at once.
+// Fused point-lookup cascade for Hopper: a warp per (query, level)
+// pair, every level of a query in flight at once.
 //
 // Replaces src/repro/kernels/cascade/kernel.py::cascade_pallas (TPU),
-// and computes exactly what kernels/cascade/ref.py::cascade_ref and
-// csrc/cascade.cu compute: per packed SSTable level the fence position
+// and computes exactly what kernels/cascade/ref.py::cascade_ref
+// computes: per packed SSTable level the fence position
 // min(lower_bound, cnt - 1) over the level's true count (-1 for an
 // empty level), the H-probe Bloom verdict and the exact hit, the first
 // hit in level order resolving the entry's seq; per GLORAN DR-tree
 // level the point stab of (key, resolved seq) at upper_bound - 1, no
 // coverage on an empty level or left of the level's first area.
 //
-// Bound: the latency of dependent loads, not bytes.  csrc/cascade.cu
-// runs one thread per query through ~19 binary-search steps, H Bloom
-// loads, the hit and the seq per level, and ~13 steps + 3 loads per
-// GLORAN level, one level after another: ~70 L2 round trips in a row
-// at L = 2, G = 1.  Here:
+// Bound: the latency of dependent loads, not bytes.  One thread a query
+// would run ~19 binary-search steps, H Bloom loads, the hit and the seq
+// per level, and ~13 steps + 3 loads per GLORAN level, one level after
+// another: ~70 L2 round trips in a row at L = 2, G = 1.  Here:
 //   - each (query, SSTable level) and (query, GLORAN level) pair is one
 //     work item of a lane group, so a query's levels run concurrently;
-//   - searches are W-ary (group_search.cuh): ~4 rounds over 450 K keys;
+//   - searches are 32-ary (group_search.cuh): ~4 rounds over 450 K keys;
 //   - the Bloom probes load in one round (lane h probes hash h) before
 //     the search; without the early exit the AND is the same (moving
 //     the group's vote after the search, so the two overlap, measured
@@ -28,19 +27,21 @@
 //     for the seq; only the final compare does, in shared memory after
 //     the block's resolution step, which takes the first hit in level
 //     order as the plain version does.
-// A block holds kThreads / W groups and as many queries as give each
-// group one item: n = 1024 at L = 2, G = 1 runs ~100-500 blocks, not 4.
-// On the card (PERF.md section 6) this beats csrc/cascade.cu at the
-// path's ~1024 queries a launch and loses from ~8192 on, where the W
-// loads of a round cost more than the round trips they save.
+// A block holds kThreads / 32 warps and as many queries as give each
+// warp one item.  Groups of 8 and 16 lanes were timed beside 32 and
+// lost; a kernel of one thread a query won only from ~8192 queries a
+// launch, past what a shard's sub-batch holds (PERF.md section 6).
 #include <algorithm>
 
 #include "common.cuh"
 #include "group_search.cuh"
 
 constexpr int kMaxLevels = 30;
-constexpr int kMaxQueries = kThreads / 8;  // queries a block, at W = 8
+constexpr int kLanes = 32;                      // lanes a work item
+constexpr int kMaxQueries = kThreads / kLanes;  // queries a block
 
+// Instantiated at W = kLanes only; the profiler names the kernel
+// cascade_sm90_kernel<32, ...>.
 template <int W, bool kLowerStab>
 __global__ void __launch_bounds__(kThreads) cascade_sm90_kernel(
     int n, int qpb, const uint32_t* __restrict__ qkey,
@@ -159,41 +160,13 @@ __global__ void __launch_bounds__(kThreads) cascade_sm90_kernel(
   }
 }
 
-// Queries a block: one work item per group where L + G allows it.
-template <int W>
-int queries_per_block(int L, int G) {
-  return std::max(1, (kThreads / W) / (L + G));
+// Queries a block: one work item per warp where L + G allows it.
+static int queries_per_block(int L, int G) {
+  return std::max(1, kMaxQueries / (L + G));
 }
 
-template <int W, bool kLowerStab>
-int launch_w(int n, const uint32_t* qkey, const uint32_t* qhash,
-             const uint32_t* qseq, const int32_t* qres, const uint32_t* lkeys,
-             const uint32_t* lseqs, const int32_t* key_off,
-             const int32_t* key_cnt, const uint32_t* words,
-             const int32_t* word_off, const uint32_t* mbits,
-             const uint32_t* seeds, int L, int H, const uint32_t* glo_lo,
-             const uint32_t* glo_hi, const uint32_t* glo_smin,
-             const uint32_t* glo_smax, const int32_t* gl_off,
-             const int32_t* gl_cnt, int G, int32_t* bloom_out,
-             int32_t* hit_out, int32_t* gl_out, int32_t* pos_out,
-             cudaStream_t stream) {
-  const int qpb = queries_per_block<W>(L, G);
-  cascade_sm90_kernel<W, kLowerStab>
-      <<<(n + qpb - 1) / qpb, kThreads, 0, stream>>>(
-          n, qpb, qkey, qhash, qseq, qres, lkeys, lseqs, key_off, key_cnt,
-          words, word_off, mbits, seeds, L, H, glo_lo, glo_hi, glo_smin,
-          glo_smax, gl_off, gl_cnt, G, bloom_out, hit_out, gl_out, pos_out);
-  return (int)cudaGetLastError();
-}
-
-#define CASCADE_ARGS                                                        \
-  n, qkey, qhash, qseq, qres, lkeys, lseqs, key_off, key_cnt, words,        \
-      word_off, mbits, seeds, L, H, glo_lo, glo_hi, glo_smin, glo_smax,     \
-      gl_off, gl_cnt, G, bloom_out, hit_out, gl_out, pos_out,               \
-      (cudaStream_t)stream
-
-// lanes: 8, 16 or 32 lanes a work item; planted_fault != 0 stabs the
-// GLORAN levels at lower_bound - 1 (a wrong kernel for the checks).
+// planted_fault != 0 stabs the GLORAN levels at lower_bound - 1 (a
+// wrong kernel for the checks).
 extern "C" int cascade_sm90_launch(
     int n, const uint32_t* qkey, const uint32_t* qhash, const uint32_t* qseq,
     const int32_t* qres, const uint32_t* lkeys, const uint32_t* lseqs,
@@ -202,33 +175,27 @@ extern "C" int cascade_sm90_launch(
     int L, int H, const uint32_t* glo_lo, const uint32_t* glo_hi,
     const uint32_t* glo_smin, const uint32_t* glo_smax, const int32_t* gl_off,
     const int32_t* gl_cnt, int G, int32_t* bloom_out, int32_t* hit_out,
-    int32_t* gl_out, int32_t* pos_out, int lanes, int planted_fault,
-    void* stream) {
+    int32_t* gl_out, int32_t* pos_out, int planted_fault, void* stream) {
   if (L < 1 || L > kMaxLevels || G < 0 || G > kMaxLevels)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
-  const bool f = planted_fault != 0;
-  switch (lanes) {
-    case 8: return f ? launch_w<8, true>(CASCADE_ARGS)
-                     : launch_w<8, false>(CASCADE_ARGS);
-    case 16: return f ? launch_w<16, true>(CASCADE_ARGS)
-                      : launch_w<16, false>(CASCADE_ARGS);
-    case 32: return f ? launch_w<32, true>(CASCADE_ARGS)
-                      : launch_w<32, false>(CASCADE_ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int qpb = queries_per_block(L, G);
+  auto kernel = planted_fault ? cascade_sm90_kernel<kLanes, true>
+                              : cascade_sm90_kernel<kLanes, false>;
+  kernel<<<(n + qpb - 1) / qpb, kThreads, 0, (cudaStream_t)stream>>>(
+      n, qpb, qkey, qhash, qseq, qres, lkeys, lseqs, key_off, key_cnt, words,
+      word_off, mbits, seeds, L, H, glo_lo, glo_hi, glo_smin, glo_smax,
+      gl_off, gl_cnt, G, bloom_out, hit_out, gl_out, pos_out);
+  return (int)cudaGetLastError();
 }
 
 // An empty kernel on the cascade's grid: its device time is the launch
 // floor beneath the cascade's time (a reading, not a bound).
 __global__ void __launch_bounds__(kThreads) cascade_sm90_floor_kernel() {}
 
-extern "C" int cascade_sm90_floor_launch(int n, int L, int G, int lanes,
-                                         void* stream) {
+extern "C" int cascade_sm90_floor_launch(int n, int L, int G, void* stream) {
   if (n <= 0 || L + G < 1) return (int)cudaErrorInvalidValue;
-  const int qpb = lanes == 8    ? queries_per_block<8>(L, G)
-                  : lanes == 16 ? queries_per_block<16>(L, G)
-                                : queries_per_block<32>(L, G);
+  const int qpb = queries_per_block(L, G);
   cascade_sm90_floor_kernel<<<(n + qpb - 1) / qpb, kThreads, 0,
                               (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();

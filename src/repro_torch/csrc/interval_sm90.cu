@@ -4,16 +4,16 @@
 //
 // Replaces src/repro/kernels/interval/kernel.py::interval_query_pallas
 // (TPU), and computes exactly what kernels/interval/ref.py::
-// interval_query_ref and csrc/interval.cu compute.  The columns are the
+// interval_query_ref computes.  The columns are the
 // registry's pow2-padded u32 views (padding lo = hi = 0xFFFFFFFF, smin =
 // smax = 0 covers nothing), the layout the cascade's pack shares.
 //
 // Bound: the bytes bound (keys and seqs read, verdicts written, the
 // search's distinct sectors and three tail loads) lies far below the
 // launch floor at the path's sizes; what is left is the dependent-load
-// chain.  csrc/interval.cu runs a binary search in global memory (13
-// dependent loads at 8192 areas, 20 at 2^20), then hi, smin and smax one
-// after another behind the && short-circuit.  Here one thread a query
+// chain.  A thread-a-query binary search in global memory takes 13
+// dependent loads at 8192 areas (20 at 2^20), then hi, smin and smax
+// one after another behind the && short-circuit.  Here one thread a query
 // searches a shared-memory directory of every 2^s-th entry of lo (at
 // most kDirEntries, the whole column when it fits), staged once by each
 // block of kDirThreads queries; the last s steps run in global memory

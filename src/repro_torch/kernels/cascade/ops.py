@@ -1,5 +1,4 @@
-"""Wrappers of the fused lookup-cascade kernels (``csrc/cascade_sm90.cu``
-and ``csrc/cascade.cu``).
+"""Wrapper of the fused lookup-cascade kernel (``csrc/cascade_sm90.cu``).
 
 Replaces ``src/repro/kernels/cascade/kernel.py::cascade_pallas``.
 ``CascadeState`` is the packed filter state the engine's
@@ -7,12 +6,9 @@ Replaces ``src/repro/kernels/cascade/kernel.py::cascade_pallas``.
 shard's device: per-level keys, seqs and Bloom words, pow2-padded and
 concatenated, and the GLORAN disjoint interval view likewise.
 ``cascade_masks`` takes the plain version for CPU tensors and launches
-``cascade_sm90`` (a lane group per query and level) for CUDA tensors,
-or raises; the one-thread-a-query ``cascade`` kernel computes the same
-outputs and is reached only through ``_launch_simt``, so that both can
-be timed on the same inputs.  ``cascade_lookup`` uploads a query batch
-and unpacks the bitmasks into the per-level verdicts the tree's read
-path consumes.
+``cascade_sm90`` (a warp per query and level) for CUDA tensors, or
+raises.  ``cascade_lookup`` uploads a query batch and unpacks the
+bitmasks into the per-level verdicts the tree's read path consumes.
 
 Pack budgets: the registry declines packs past the ``MAX_PACK_*``
 limits, which then go the per-level route.  They are the reference's
@@ -21,7 +17,6 @@ values, kept so that kernel counters match it.
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -104,11 +99,6 @@ class CascadeState:
                    for f in _U32_FIELDS + _I32_FIELDS)
 
 
-# Lanes that answer one (query, level) pair in ``cascade_sm90``: 8, 16
-# or 32, chosen from their times on the card (PERF.md section 6).
-LANES = 32
-
-
 def cascade_masks(qkey, qhash, qseq, qres, state: CascadeState):
     """One fused pass over every level for (n,) query tensors (u32 keys,
     folded u32 Bloom hashes, u32 seqs and int32 resolved flags of
@@ -121,16 +111,19 @@ def cascade_masks(qkey, qhash, qseq, qres, state: CascadeState):
     return _launch_sm90(qkey, qhash, qseq, qres, state)
 
 
-def _operands(name, qkey, qhash, qseq, qres, st: CascadeState):
-    """Checked device, outputs and the C argument list shared by both
-    kernels: (n, queries, state, GLORAN columns, outputs)."""
+def _launch_sm90(qkey, qhash, qseq, qres, st: CascadeState, *,
+                 planted_fault: bool = False):
+    """``cascade_sm90``; ``planted_fault`` stabs the GLORAN levels at
+    lower_bound - 1 (a wrong kernel, for the card's checks)."""
     if not (1 <= st.L <= 30 and 0 <= st.G <= 30):
-        raise ValueError(f"{name}: L={st.L}, G={st.G} outside 1..30/0..30")
+        raise ValueError(f"cascade_sm90: L={st.L}, G={st.G} outside "
+                         f"1..30/0..30")
     gl_cols = (st.glo_lo, st.glo_hi, st.glo_smin, st.glo_smax, st.gl_off,
                st.gl_cnt) if st.G else ()
     dev = native.require_cuda(
-        name, qkey, qhash, qseq, qres, st.lkeys, st.lseqs, st.key_off,
-        st.key_cnt, st.words, st.word_off, st.mbits, st.seeds, *gl_cols)
+        "cascade_sm90", qkey, qhash, qseq, qres, st.lkeys, st.lseqs,
+        st.key_off, st.key_cnt, st.words, st.word_off, st.mbits, st.seeds,
+        *gl_cols)
     n = qkey.numel()
     outs = (torch.empty(n, dtype=torch.int32, device=dev),
             torch.empty(n, dtype=torch.int32, device=dev),
@@ -138,55 +131,23 @@ def _operands(name, qkey, qhash, qseq, qres, st: CascadeState):
             torch.empty((st.L, n), dtype=torch.int32, device=dev))
     p = native.ptr
     gp = (lambda t: p(t if st.G else None))
-    args = [n, p(qkey), p(qhash), p(qseq), p(qres), p(st.lkeys),
-            p(st.lseqs), p(st.key_off), p(st.key_cnt), p(st.words),
-            p(st.word_off), p(st.mbits), p(st.seeds), st.L, st.H,
-            gp(st.glo_lo), gp(st.glo_hi), gp(st.glo_smin), gp(st.glo_smax),
-            gp(st.gl_off), gp(st.gl_cnt), st.G, *map(p, outs)]
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
-                + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
-                + [ctypes.c_int] + [ctypes.c_void_p] * 4)
-    return dev, outs, args, argtypes
-
-
-def _launch_sm90(qkey, qhash, qseq, qres, st: CascadeState, *,
-                 lanes: int = LANES, planted_fault: bool = False):
-    """``cascade_sm90``; ``planted_fault`` stabs the GLORAN levels at
-    lower_bound - 1 (a wrong kernel, for the card's checks)."""
-    if lanes not in (8, 16, 32):
-        raise ValueError(f"cascade_sm90: lanes {lanes} not 8, 16 or 32")
-    dev, outs, args, argtypes = _operands("cascade_sm90", qkey, qhash, qseq,
-                                          qres, st)
-    fn = native.library("cascade_sm90").cascade_sm90_launch
-    fn.argtypes = argtypes + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    native.check("cascade_sm90", fn(*args, lanes, int(planted_fault),
-                                    native.stream(dev)))
+    fn = native.entry("cascade_sm90", "cascade_sm90_launch")
+    native.check("cascade_sm90", fn(
+        n, p(qkey), p(qhash), p(qseq), p(qres), p(st.lkeys), p(st.lseqs),
+        p(st.key_off), p(st.key_cnt), p(st.words), p(st.word_off),
+        p(st.mbits), p(st.seeds), st.L, st.H, gp(st.glo_lo), gp(st.glo_hi),
+        gp(st.glo_smin), gp(st.glo_smax), gp(st.gl_off), gp(st.gl_cnt),
+        st.G, *map(p, outs), int(planted_fault), native.stream(dev)))
     native.count_launch("cascade_sm90")
     return outs
 
 
-def _launch_simt(qkey, qhash, qseq, qres, st: CascadeState):
-    """``cascade``: one thread a query, the levels one after another."""
-    dev, outs, args, argtypes = _operands("cascade", qkey, qhash, qseq,
-                                          qres, st)
-    fn = native.library("cascade").cascade_launch
-    fn.argtypes = argtypes + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    native.check("cascade", fn(*args, native.stream(dev)))
-    native.count_launch("cascade")
-    return outs
-
-
-def _launch_floor(n: int, st: CascadeState, *, lanes: int = LANES) -> None:
+def _launch_floor(n: int, st: CascadeState) -> None:
     """An empty kernel on ``cascade_sm90``'s grid for n queries: the
     launch floor beneath its time (not a launch of the cascade)."""
-    dev = st.device
-    fn = native.library("cascade_sm90").cascade_sm90_floor_launch
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = native.entry("cascade_sm90", "cascade_sm90_floor_launch")
     native.check("cascade_sm90_floor",
-                 fn(n, st.L, st.G, lanes, native.stream(dev)))
+                 fn(n, st.L, st.G, native.stream(st.device)))
 
 
 def cascade_lookup(qkey32, qhash32, qseq32, qres, state: CascadeState):

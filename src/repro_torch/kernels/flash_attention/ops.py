@@ -24,8 +24,6 @@ kernel there or raises, a CPU mesh runs the plain version.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ...obs import span
@@ -148,10 +146,6 @@ def _args(q, k, v, scale, causal, window):
                int(window is not None), int(window or 0)]
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] \
-    + [ctypes.c_int] * 3
-
-
 def _launch_sm90(q, k, v, scale, causal, window):
     """The wgmma kernel; bf16 operands in its domain (``kernel_for``),
     16-byte aligned for the tensor maps."""
@@ -164,9 +158,7 @@ def _launch_sm90(q, k, v, scale, causal, window):
         raise ValueError("flash_attention_sm90: operands must be 16-byte "
                          "aligned")
     o, args = _args(q, k, v, scale, causal, window)
-    fn = native.library("flash_attention_sm90").flash_attention_sm90_launch
-    fn.argtypes = _ARGTYPES + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = native.entry("flash_attention_sm90", "flash_attention_sm90_launch")
     native.check("flash_attention_sm90", fn(*args, native.stream(dev)))
     native.count_launch("flash_attention_sm90")
     return o
@@ -177,10 +169,8 @@ def _launch_floor(b: int, sq: int, hq: int, d: int, device) -> None:
     shared memory for (b, sq, hq, d) queries: the launch floor beneath
     its time (not a launch of the attention)."""
     dev = torch.device(device)
-    fn = native.library("flash_attention_sm90") \
-        .flash_attention_sm90_floor_launch
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = native.entry("flash_attention_sm90",
+                      "flash_attention_sm90_floor_launch")
     native.check("flash_attention_sm90_floor",
                  fn(b, sq, hq, d, native.stream(dev)))
 
@@ -189,9 +179,7 @@ def _launch_simt(q, k, v, scale, causal, window):
     """The CUDA-core kernel, f32 or bf16, any D up to 256."""
     dev = _check(q, k, v)
     o, args = _args(q, k, v, scale, causal, window)
-    fn = native.library("flash_attention").flash_attention_launch
-    fn.argtypes = _ARGTYPES + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = native.entry("flash_attention", "flash_attention_launch")
     native.check("flash_attention", fn(*args, int(q.dtype == torch.bfloat16),
                                        native.stream(dev)))
     native.count_launch("flash_attention")

@@ -11,8 +11,6 @@ one sorted run (``merge_rank``, one thread a query).
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -35,11 +33,7 @@ def _launch_rank(q, run, leq) -> torch.Tensor:
     dev = native.require_cuda("merge_rank", q, run)
     n = q.numel()
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    fn = native.library("merge_rank").merge_rank_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = native.entry("merge_rank", "merge_rank_launch")
     err = fn(n, native.ptr(q), run.numel(), native.ptr(run), int(leq),
              native.ptr(out), native.stream(dev))
     native.check("merge_rank", err)
@@ -63,11 +57,7 @@ def _launch_merge_path(a, b, *, planted_fault: bool = False):
     out = torch.empty(a.numel() + b.numel(), dtype=torch.int32, device=dev)
     if not out.numel():
         return out
-    fn = native.library("merge_path_sm90").merge_path_sm90_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = native.entry("merge_path_sm90", "merge_path_sm90_launch")
     err = fn(native.ptr(a), a.numel(), native.ptr(b), b.numel(),
              native.ptr(out), int(planted_fault), native.stream(dev))
     native.check("merge_path_sm90", err)
@@ -79,9 +69,7 @@ def _launch_floor(na: int, nb: int, device) -> None:
     """An empty kernel on ``merge_path_sm90``'s grid for runs of na and
     nb: the launch floor beneath its time (not a launch of the merge)."""
     dev = torch.device(device)
-    fn = native.library("merge_path_sm90").merge_path_sm90_floor_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = native.entry("merge_path_sm90", "merge_path_sm90_floor_launch")
     native.check("merge_path_sm90_floor", fn(na, nb, native.stream(dev)))
 
 

@@ -8,8 +8,10 @@ source builds anew and an
 unchanged one loads the library it built before.  Every C entry point
 takes raw device pointers plus the CUDA stream and returns
 ``cudaGetLastError()`` after its launch; ``check`` raises on anything
-but 0.  Nothing here runs at import: the first wrapper that launches a
-kernel builds its library.
+but 0.  ``SIGNATURES`` declares each entry point's parameters once;
+``library`` applies them when it loads a library, and ``entry`` hands a
+wrapper the declared function.  Nothing here runs at import: the first
+wrapper that launches a kernel builds its library.
 
 ``LAUNCHES`` counts kernel launches per kernel name.  Each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
@@ -30,13 +32,62 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("cascade", "merge_rank", "bloom", "interval", "ssd",
-           "flash_attention", "ssd_sm90", "flash_attention_sm90",
-           "cascade_sm90", "merge_path_sm90", "bloom_sm90", "interval_sm90")
+KERNELS = ("merge_rank", "ssd", "flash_attention", "ssd_sm90",
+           "flash_attention_sm90", "cascade_sm90", "merge_path_sm90",
+           "bloom_sm90", "interval_sm90")
 INTS = (torch.int32, torch.uint32)
 FLOATS = (torch.float32, torch.bfloat16)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                  ctypes.c_float)
+# The parameters of every C entry point, by library and entry name, in
+# the order of its ``extern "C"`` declaration: pointers (the stream
+# last), ints, u32 and floats.  Every entry point returns int.
+SIGNATURES = {
+    "merge_rank": {
+        # n, q, m, run, leq, out, stream
+        "merge_rank_launch": (_I, _P, _I, _P, _I, _P, _P)},
+    "ssd": {
+        # x, dac, dt, B, C, y, states; batch, S, H, P, N, Q, bf16; stream
+        "ssd_chunks_launch": (_P,) * 7 + (_I,) * 7 + (_P,)},
+    "flash_attention": {
+        # q, k, v, o; B, Sq, Skv, Hq, Hkv, D; scale; causal, has_window,
+        # window, bf16; stream
+        "flash_attention_launch":
+            (_P,) * 4 + (_I,) * 6 + (_F,) + (_I,) * 4 + (_P,)},
+    "ssd_sm90": {
+        # as ssd_chunks_launch, strict in place of bf16
+        "ssd_sm90_launch": (_P,) * 7 + (_I,) * 7 + (_P,),
+        "ssd_sm90_floor_launch": (_I,) * 6 + (_P,)},
+    "flash_attention_sm90": {
+        # as flash_attention_launch, without bf16
+        "flash_attention_sm90_launch":
+            (_P,) * 4 + (_I,) * 6 + (_F,) + (_I,) * 3 + (_P,),
+        "flash_attention_sm90_floor_launch": (_I,) * 4 + (_P,)},
+    "cascade_sm90": {
+        # n; qkey, qhash, qseq, qres, lkeys, lseqs, key_off, key_cnt,
+        # words, word_off, mbits, seeds; L, H; glo_lo, glo_hi, glo_smin,
+        # glo_smax, gl_off, gl_cnt; G; bloom, hit, gl, pos; planted_fault;
+        # stream
+        "cascade_sm90_launch": (_I,) + (_P,) * 12 + (_I,) * 2 + (_P,) * 6
+        + (_I,) + (_P,) * 4 + (_I, _P),
+        "cascade_sm90_floor_launch": (_I,) * 3 + (_P,)},
+    "merge_path_sm90": {
+        # a, na, b, nb, out, planted_fault, stream
+        "merge_path_sm90_launch": (_P, _I, _P, _I, _P, _I, _P),
+        "merge_path_sm90_floor_launch": (_I, _I, _P)},
+    "bloom_sm90": {
+        # n, keys, words, m_bits, seeds (host), H, out, planted_fault,
+        # stream
+        "bloom_sm90_launch": (_I, _P, _P, _U, _P, _I, _P, _I, _P),
+        "bloom_sm90_floor_launch": (_I, _P)},
+    "interval_sm90": {
+        # n, keys, seqs, m, lo, hi, smin, smax, out, planted_fault, stream
+        "interval_sm90_launch": (_I, _P, _P, _I) + (_P,) * 5 + (_I, _P),
+        "interval_sm90_floor_launch": (_I, _P)},
+}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -96,6 +147,16 @@ def _finish_build(name: str, proc, lib: Path) -> None:
     os.replace(tmp, lib)  # atomic: a reader never sees half a library
 
 
+def _load(name: str, path: Path) -> None:
+    """Load a built library and declare its entry points."""
+    lib = ctypes.CDLL(str(path))
+    for entry_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, entry_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _libs[name] = lib
+
+
 def build_all() -> None:
     """Compile every kernel source at once (one nvcc per source, all
     started together) and load the libraries."""
@@ -104,7 +165,7 @@ def build_all() -> None:
         started = [(name, *_start_build(name)) for name in todo]
         for name, proc, lib in started:
             _finish_build(name, proc, lib)
-            _libs[name] = ctypes.CDLL(str(lib))
+            _load(name, lib)
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -116,8 +177,16 @@ def library(name: str) -> ctypes.CDLL:
         if name not in _libs:
             proc, path = _start_build(name)
             _finish_build(name, proc, path)
-            _libs[name] = ctypes.CDLL(str(path))
+            _load(name, path)
         return _libs[name]
+
+
+def entry(name: str, fn: str):
+    """The C entry point ``fn`` of kernel ``name``'s library, declared
+    as ``SIGNATURES`` gives it."""
+    if fn not in SIGNATURES[name]:
+        raise KeyError(f"{name}: no declared entry point {fn}")
+    return getattr(library(name), fn)
 
 
 def check(name: str, err: int) -> None:

@@ -27,8 +27,6 @@ raises, a CPU mesh runs the plain version.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ...obs import span
@@ -153,10 +151,7 @@ def _launch_sm90(x, dac, dt, B, C, chunk, *, planted_fault: bool = False):
     if any(t.data_ptr() % 16 for t in (x, B, C)):
         raise ValueError("ssd_sm90: x, B, C must be 16-byte aligned")
     y, states, dims = _outputs(x, B, chunk, dev)
-    fn = native.library("ssd_sm90").ssd_sm90_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = native.entry("ssd_sm90", "ssd_sm90_launch")
     err = fn(native.ptr(x), native.ptr(dac), native.ptr(dt), native.ptr(B),
              native.ptr(C), native.ptr(y), native.ptr(states), *dims,
              int(planted_fault), native.stream(dev))
@@ -171,9 +166,7 @@ def _launch_floor(batch: int, s: int, h: int, p: int, n: int, chunk: int,
     for these shapes: the launch floor beneath its time (not a launch of
     the scan)."""
     dev = torch.device(device)
-    fn = native.library("ssd_sm90").ssd_sm90_floor_launch
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = native.entry("ssd_sm90", "ssd_sm90_floor_launch")
     native.check("ssd_sm90_floor",
                  fn(batch, s, h, p, n, chunk, native.stream(dev)))
 
@@ -182,10 +175,7 @@ def _launch_simt(x, dac, dt, B, C, chunk):
     """The CUDA-core kernel, f32 or bf16, any p, n and chunk."""
     dev = _check(x, dac, dt, B, C, chunk)
     y, states, dims = _outputs(x, B, chunk, dev)
-    fn = native.library("ssd").ssd_chunks_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = native.entry("ssd", "ssd_chunks_launch")
     err = fn(native.ptr(x), native.ptr(dac), native.ptr(dt), native.ptr(B),
              native.ptr(C), native.ptr(y), native.ptr(states), *dims,
              int(x.dtype == torch.bfloat16), native.stream(dev))

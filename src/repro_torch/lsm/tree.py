@@ -228,17 +228,14 @@ class LSMTree:
                     self.range_delete(int(lo), int(hi))
 
     # -------------------------------------------------------------- reads
-    def _mem_rt_cover(self, key: int) -> int:
-        cov = 0
-        for lo, hi, s in self.mem_rts:
-            if lo <= key < hi:
-                cov = max(cov, s)
-        return cov
-
     def get(self, key: int):
         """Point lookup; returns value or None."""
         key = int(key)
-        rt_max = self._mem_rt_cover(key) if self.strategy == "lrr" else 0
+        rt_max = 0
+        if self.strategy == "lrr":
+            cov = np.zeros(1, dtype=np.uint64)
+            self._fold_mem_rts(np.asarray([key], dtype=np.uint64), cov)
+            rt_max = int(cov[0])
         hit = self.mem.get(key)
         if hit is not None:
             seq, typ, val = hit
@@ -246,15 +243,6 @@ class LSMTree:
         if self.frozen:
             # Sealed snapshots sit between the active memtable and the
             # levels: newest first, memory-resident (no I/O charge).
-            # Seal boundaries are temporal (sequence numbers only grow),
-            # so accumulating EVERY frozen range tombstone before
-            # probing data is exact — an older tombstone's seq can
-            # never exceed a newer entry's.
-            if self.strategy == "lrr":
-                for fz in self.frozen:
-                    for lo, hi, s in fz.rts:
-                        if lo <= key < hi:
-                            rt_max = max(rt_max, s)
             for fz in reversed(self.frozen):
                 if not len(fz.keys):
                     continue
@@ -312,7 +300,14 @@ class LSMTree:
 
         with span("lsm.get_mem", n=n):
             if self.strategy == "lrr":
-                self._fold_mem_rts(keys, rt_max)
+                # ``built`` counts the tombstones whose block this fold
+                # builds (0 where every block was cached).
+                held = [(self.mem_rts, self._mem_rt_blk),
+                        *((fz.rts, fz.rt_blk) for fz in self.frozen)]
+                with span("lsm.rt_mem", n=n,
+                          rts=sum(len(r) for r, _ in held),
+                          built=sum(len(r) for r, b in held if b is None)):
+                    self._fold_mem_rts(keys, rt_max)
 
             # Memtable: one sorted snapshot + batched binary search (skipped
             # entirely when empty — the steady post-flush state of
@@ -414,34 +409,30 @@ class LSMTree:
         return out_found, out_vals
 
     def _fold_mem_rts(self, keys: np.ndarray, rt_max: np.ndarray) -> None:
-        """Fold the memtable's and the sealed memtables' LRR tombstones
-        into ``rt_max`` up front: seal boundaries are temporal, so the
-        superset is exact (an older tombstone can't outrank a newer
-        entry).
+        """Fold the newest LRR tombstone of the memtable and the sealed
+        memtables that covers each key into ``rt_max``: the one rule
+        every LRR read (``get``, ``get_batch``, scans) takes for the
+        memtables.  Seal boundaries are temporal, so folding every
+        memtable up front is exact (an older tombstone can't outrank a
+        newer entry).
 
         Each memtable answers through its own ``RangeTombstoneBlock``,
         probed uncharged (memtable tombstones are memory-resident): a
-        max-seq step function built by the first get after its
+        max-seq step function built by the first read after its
         tombstones change, so a read burst between writes pays one
-        ``searchsorted`` per memtable, not a pass per tombstone.  The
-        span's ``built`` counts the tombstones whose block this call
-        builds (0 where every block was cached).
+        ``searchsorted`` per memtable, not a pass per tombstone.
         """
-        frozen = list(self.frozen)
-        held = [(self.mem_rts, self._mem_rt_blk),
-                *((fz.rts, fz.rt_blk) for fz in frozen)]
-        with span("lsm.rt_mem", n=len(keys),
-                  rts=sum(len(r) for r, _ in held),
-                  built=sum(len(r) for r, b in held if b is None)):
-            if self._mem_rt_blk is None:
-                self._mem_rt_blk = RangeTombstoneBlock.from_tuples(
-                    self.mem_rts, self.config)
-            for fz in frozen:
-                if fz.rt_blk is None:
-                    fz.rt_blk = RangeTombstoneBlock.from_tuples(
-                        fz.rts, self.config)
-            for blk in (self._mem_rt_blk, *(fz.rt_blk for fz in frozen)):
-                np.maximum(rt_max, blk.max_covering_batch(keys), out=rt_max)
+        if self._mem_rt_blk is None:
+            self._mem_rt_blk = RangeTombstoneBlock.from_tuples(
+                self.mem_rts, self.config)
+        blks = [self._mem_rt_blk]
+        for fz in self.frozen:
+            if fz.rt_blk is None:
+                fz.rt_blk = RangeTombstoneBlock.from_tuples(fz.rts,
+                                                            self.config)
+            blks.append(fz.rt_blk)
+        for blk in blks:
+            np.maximum(rt_max, blk.max_covering_batch(keys), out=rt_max)
 
     def _mem_sorted(self):
         """Key-sorted snapshot of the memtable as a 4-array run, cached
@@ -546,13 +537,7 @@ class LSMTree:
         path exactly.
         """
         rt_max = np.zeros(len(keys), dtype=np.uint64)
-        for lo_, hi_, s_ in self.mem_rts:
-            m = (keys >= lo_) & (keys < hi_)
-            rt_max[m] = np.maximum(rt_max[m], np.uint64(s_))
-        for fz in self.frozen:
-            for lo_, hi_, s_ in fz.rts:  # memory-resident: no charge
-                m = (keys >= lo_) & (keys < hi_)
-                rt_max[m] = np.maximum(rt_max[m], np.uint64(s_))
+        self._fold_mem_rts(keys, rt_max)  # memory-resident: no charge
         for rtb in self.level_rts:
             if len(rtb):
                 cnts = np.searchsorted(rtb.starts, his)

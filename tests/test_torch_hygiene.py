@@ -107,7 +107,7 @@ def test_kernel_wrapper_refuses_cpu_operands_and_missing_nvcc(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(ROOT / "no-such-toolkit"))
     monkeypatch.setattr(native, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        native.library("bloom")
+        native.library("bloom_sm90")
 
 
 # ------------------------------------------------ the model stack's slice

@@ -6,7 +6,9 @@ active one and each sealed one).  Here the loop it replaced is kept as
 the oracle: every case drives a tree and a twin whose fold is the loop
 through the same writes, seals, flushes and get batches, and holds the
 fold's covering sequence numbers, the get answers and every ``IOStats``
-count byte for byte to the twin's.
+count byte for byte to the twin's.  ``get`` (key by key) and
+``range_scan_batch`` take the same fold, and are held to the twin's
+likewise.
 """
 
 import numpy as np
@@ -126,12 +128,18 @@ CASES = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_the_cached_fold_is_the_loop(case):
+def drive(case, check):
+    """Run ``case``'s writes on a tree and its ``LoopTree`` twin; at each
+    of its reads call ``check(tree, twin, keys, written, rng)`` with the
+    probe keys of that read and the keys put so far.  Returns the
+    tree."""
     rng = np.random.default_rng(sum(map(ord, case)))
     scheduler, ops = CASES[case](rng)
     tree, twin = make(LSMTree, scheduler), make(LoopTree, scheduler)
+    written = np.zeros(0, dtype=np.uint64)
     for op in ops:
+        if op[0] == "put":
+            written = np.concatenate([written, op[1]])
         for t in (tree, twin):
             if op[0] == "put":
                 t.put_batch(op[1], op[2])
@@ -141,24 +149,79 @@ def test_the_cached_fold_is_the_loop(case):
                 t._flush_frozen_one()
             elif op[0] == "drain":
                 t.scheduler.drain()
-        if not op[0].startswith("get"):
-            continue
-        keys = probe_keys(tree, rng, *op[1:])
-        fold = np.zeros(len(keys), dtype=np.uint64)
-        tree._fold_mem_rts(keys, fold)
-        want = loop_fold(twin, keys)
-        assert fold.tobytes() == want.tobytes()
-        # Each cached block holds its memtable's tombstones, no others.
-        assert len(tree._mem_rt_blk) == len(tree.mem_rts)
-        assert [len(fz.rt_blk) for fz in tree.frozen] == \
-            [len(fz.rts) for fz in tree.frozen]
-        (f, v), (wf, wv) = tree.get_batch(keys), twin.get_batch(keys)
-        assert f.tobytes() == wf.tobytes()
-        assert v[f].tobytes() == wv[wf].tobytes()
-        assert tree.io.snapshot() == twin.io.snapshot()
+        if op[0].startswith("get"):
+            check(tree, twin, probe_keys(tree, rng, *op[1:]), written, rng)
+    return tree
+
+
+def check_fold_and_batch(tree, twin, keys, written, rng):
+    fold = np.zeros(len(keys), dtype=np.uint64)
+    tree._fold_mem_rts(keys, fold)
+    want = loop_fold(twin, keys)
+    assert fold.tobytes() == want.tobytes()
+    # Each cached block holds its memtable's tombstones, no others.
+    assert len(tree._mem_rt_blk) == len(tree.mem_rts)
+    assert [len(fz.rt_blk) for fz in tree.frozen] == \
+        [len(fz.rts) for fz in tree.frozen]
+    (f, v), (wf, wv) = tree.get_batch(keys), twin.get_batch(keys)
+    assert f.tobytes() == wf.tobytes()
+    assert v[f].tobytes() == wv[wf].tobytes()
+    assert tree.io.snapshot() == twin.io.snapshot()
+
+
+def check_gets(tree, twin, keys, written, rng):
+    """``get`` key by key, on the probe keys and every key put so far:
+    answers and I/O equal the twin's."""
+    for k in np.r_[keys, written].tolist():
+        assert tree.get(k) == twin.get(k), k
+    assert tree.io.snapshot() == twin.io.snapshot()
+
+
+def scan_ranges(tree, keys, rng):
+    """Ranges between the points of ``keys`` at random, ranges that
+    start, end and straddle at the memtable tombstones' bounds, and a
+    few wide ones."""
+    pts = np.unique(keys)
+    lo = pts[rng.integers(0, len(pts), 48)]
+    hi = pts[rng.integers(0, len(pts), 48)]
+    rngs = [(int(min(a, b)), int(max(a, b))) for a, b in zip(lo, hi)
+            if a != b]
+    held = [*tree.mem_rts, *(r for fz in tree.frozen for r in fz.rts)]
+    for a, b, _ in held[:24]:
+        rngs += [(a, b), (max(a - 1, 0), min(b + 1, TOP)),
+                 (a, min(a + 1, TOP))]
+    rngs += [(0, TOP), (int(pts[0]), int(pts[-1]))]
+    return [(a, b) for a, b in rngs if a < b]
+
+
+def check_scans(tree, twin, keys, written, rng):
+    """``range_scan_batch`` over ranges across the tombstones' bounds
+    and the keys put so far: keys, values and I/O equal the twin's."""
+    ranges = scan_ranges(tree, np.r_[keys, written], rng)
+    got, want = tree.range_scan_batch(ranges), twin.range_scan_batch(ranges)
+    assert len(got) == len(want) == len(ranges)
+    for (k, v), (wk, wv) in zip(got, want):
+        assert k.tobytes() == wk.tobytes()
+        assert v.tobytes() == wv.tobytes()
+    assert tree.io.snapshot() == twin.io.snapshot()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_the_cached_fold_is_the_loop(case):
+    tree = drive(case, check_fold_and_batch)
     if case == "frozen_only":
         assert len(tree.frozen) == 3 and not tree.mem_rts
     if case == "seal_and_flush_between_gets":
         assert not tree.frozen and len(tree.level_rts[0])
     if case == "range_delete_between_gets":
         assert not tree.mem_rts and len(tree.level_rts[0])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_get_key_by_key_is_the_loop(case):
+    drive(case, check_gets)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_range_scans_are_the_loop(case):
+    drive(case, check_scans)

@@ -1,8 +1,8 @@
 """The bloom and interval Hopper kernels, rehearsed on the CPU.
 
 ``csrc/bloom_sm90.cu`` and ``csrc/interval_sm90.cu`` run only on an
-H100; ``chip_smoke.py`` holds them bit-exact to their plain versions and
-to the first kernels (``bloom.cu``, ``interval.cu``) there.  What the
+H100; ``chip_smoke.py`` holds them bit-exact to their plain versions
+there.  What the
 CPU can check is checked here, with numpy emulations laid out as the
 kernels work:
 
@@ -356,23 +356,21 @@ def _meta(n):
 
 @pytest.mark.parametrize("n", (1, 1024, 8192))
 def test_bloom_call_off_the_cpu_takes_bloom_sm90(monkeypatch, n):
-    new, old = _Recorder("sm90"), _Recorder("simt")
+    new = _Recorder("sm90")
     monkeypatch.setattr(bloom_ops, "_launch_sm90", new)
-    monkeypatch.setattr(bloom_ops, "_launch_simt", old)
     assert bloom_probe(_meta(n), _meta(64), m_bits=2048,
                        seeds=(1, 2)) == "sm90"
-    assert new.calls == [{}] and not old.calls
+    assert new.calls == [{}]
 
 
 @pytest.mark.parametrize("n,m", ((1, 64), (1024, 8192), (8192, 8192),
                                  (1024, 1 << 20), (8192, 1 << 20)))
 def test_interval_call_off_the_cpu_takes_interval_sm90(monkeypatch, n, m):
-    new, old = _Recorder("sm90"), _Recorder("simt")
+    new = _Recorder("sm90")
     monkeypatch.setattr(interval_ops, "_launch_sm90", new)
-    monkeypatch.setattr(interval_ops, "_launch_simt", old)
     cols = (_meta(m),) * 4
     assert interval_query(_meta(n), _meta(n), *cols) == "sm90"
-    assert new.calls == [{}] and not old.calls
+    assert new.calls == [{}]
 
 
 def test_engine_per_level_route_calls_the_public_wrappers(monkeypatch):
@@ -419,13 +417,11 @@ def _bloom_operands(dtype):
 def test_filter_kernels_refuse_cpu_and_non_int32_operands(dtype, err):
     k, w = _bloom_operands(dtype)
     match = "CUDA tensors" if err is ValueError else "expected"
-    for launch in (bloom_ops._launch_sm90, bloom_ops._launch_simt):
-        with pytest.raises(err, match=match):
-            launch(k, w, 100, (1, 2))
+    with pytest.raises(err, match=match):
+        bloom_ops._launch_sm90(k, w, 100, (1, 2))
     cols = (torch.zeros(64, dtype=dtype),) * 4
-    for launch in (interval_ops._launch_sm90, interval_ops._launch_simt):
-        with pytest.raises(err, match=match):
-            launch(k, k, *cols)
+    with pytest.raises(err, match=match):
+        interval_ops._launch_sm90(k, k, *cols)
 
 
 def test_filter_kernels_refuse_bad_shapes():
@@ -452,8 +448,11 @@ def test_filter_kernels_build_from_csrc(monkeypatch):
         assert '#include "common.cuh"' in src.read_text()
         with pytest.raises(RuntimeError, match="nvcc not found"):
             native.library(name)
-    # The first kernels stay in the build for the card's timings.
-    assert {"bloom", "interval"} <= set(native.KERNELS)
+    # One kernel a store function: the first kernels are out of the
+    # build and out of the sources.
+    for name in ("bloom", "interval"):
+        assert name not in native.KERNELS and name not in native.LAUNCHES
+        assert not (native.CSRC / f"{name}.cu").exists()
     assert "kMaxSeeds = 32" in (native.CSRC / "bloom_sm90.cu").read_text()
     assert f"kDirEntries = {DIR_ENTRIES}" in (
         native.CSRC / "interval_sm90.cu").read_text()
