@@ -15,9 +15,10 @@ import math
 import numpy as np
 
 from ..core.areas import AreaSet
-from ..core.disjointize import disjointize
+from ..core.disjointize import disjointize, merge_disjoint
 from ..core.eve import BloomBits
 from ..core.iostats import IOStats
+from ..obs import span
 from .format import LSMConfig, PUT, TOMBSTONE
 
 
@@ -237,13 +238,12 @@ class RangeTombstoneBlock:
         whose ``smax`` is exactly the max covering seq — so each probe is
         one ``searchsorted`` over segment starts instead of an
         O(keys x tombstones) cover mask.  Blocks are immutable (merges
-        build new ones), so the function is computed once per block.
+        build new ones), so the function is computed once per block,
+        here or, where ``merge`` carries it, from the merge's inputs.
         """
         if self._stab is None:
-            s = disjointize(AreaSet(self.starts, self.ends,
-                                    np.zeros(len(self.starts), np.uint64),
-                                    self.seqs))
-            self._stab = (s.lo, s.hi, s.smax)
+            self._stab = _as_step(disjointize(
+                _as_areas(self.starts, self.ends, self.seqs)))
         return self._stab
 
     def probe(self, key: int, io: IOStats | None = None) -> int:
@@ -279,13 +279,55 @@ class RangeTombstoneBlock:
         return np.where(cov, smax[ic], np.uint64(0)).astype(np.uint64)
 
     def merge(self, other: "RangeTombstoneBlock") -> "RangeTombstoneBlock":
-        return RangeTombstoneBlock(
+        """The block over both inputs' tombstones.
+
+        Where the larger input's step function is built, the merged
+        block's is ``merge_disjoint`` of the two inputs' (the smaller
+        one's built here if it is not yet): every area has ``smin`` 0,
+        so the merge takes the max seq of each elementary segment and
+        coalesces to the canonical form that ``disjointize`` of the
+        union gives, byte for byte.  Otherwise the merged block stays
+        lazy.
+        """
+        out = RangeTombstoneBlock(
             np.concatenate([self.starts, other.starts]),
             np.concatenate([self.ends, other.ends]),
             np.concatenate([self.seqs, other.seqs]), self.config)
+        big, small = ((self, other) if len(self) >= len(other)
+                      else (other, self))
+        if not big.built:
+            return out
+        with span("lsm.rt_step_merge") as sp:
+            if len(small):
+                out._stab = _as_step(merge_disjoint(
+                    _as_areas(*big._stab), _as_areas(*small._step_fn())))
+            else:
+                out._stab = big._stab
+            # ``new``: the input holding the newest tombstone.
+            old, new = sorted((self, other), key=RangeTombstoneBlock._newest)
+            sp.set(old=old.segments, new=new.segments, out=out.segments)
+        return out
+
+    def _newest(self) -> int:
+        return int(self.seqs.max()) if len(self) else 0
+
+    @property
+    def segments(self) -> int:
+        """Segments of the step function (0 where it is not built)."""
+        return len(self._stab[0]) if self._stab is not None else 0
 
     def max_covering_batch(self, keys: np.ndarray) -> np.ndarray:
         return self.probe_batch(keys, io=None)
+
+
+def _as_areas(lo, hi, smax) -> AreaSet:
+    """Tombstones, or a step function's segments, as effective areas
+    [lo, hi) x [0, smax)."""
+    return AreaSet(lo, hi, np.zeros(len(lo), np.uint64), smax)
+
+
+def _as_step(s: AreaSet) -> tuple:
+    return (s.lo, s.hi, s.smax)
 
 
 def build_sstable(keys, seqs, types, vals, config: LSMConfig,

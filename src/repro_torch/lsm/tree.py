@@ -599,7 +599,9 @@ class LSMTree:
                                 seed=self._sstable_seed, presorted=True)
             self._merge_into(0, run)
         if self.strategy == "lrr" and fz.rts:
-            rtb = RangeTombstoneBlock.from_tuples(fz.rts, self.config)
+            # The block a get built keeps its step function for the merge.
+            rtb = fz.rt_blk if fz.rt_blk is not None else \
+                RangeTombstoneBlock.from_tuples(fz.rts, self.config)
             self._ensure_rt(0)
             self.level_rts[0] = self.level_rts[0].merge(rtb)
             self.io.write_sequential(self.level_rts[0].nbytes,
@@ -618,7 +620,8 @@ class LSMTree:
                                 seed=self._sstable_seed, presorted=True)
             self._merge_into(0, run)
         if self.strategy == "lrr" and self.mem_rts:
-            rtb = RangeTombstoneBlock.from_tuples(self.mem_rts, self.config)
+            rtb = self._mem_rt_blk if self._mem_rt_blk is not None else \
+                RangeTombstoneBlock.from_tuples(self.mem_rts, self.config)
             self.mem_rts = []
             self._mem_rt_blk = None
             self._ensure_rt(0)

@@ -41,6 +41,9 @@ class _NullSpan:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs) -> None:
+        pass
+
 
 _NULL_SPAN = _NullSpan()
 
@@ -81,6 +84,10 @@ class _Span:
         self.tracer._record(self.name, self.t0, time.perf_counter(),
                             self.attrs)
         return False
+
+    def set(self, **attrs) -> None:
+        """Add attributes known only before the span closes."""
+        self.attrs.update(attrs)
 
 
 class Tracer:

@@ -10,7 +10,9 @@ off.  Its answers are held to the benchmark's plain reference
 (``perfbench/reference``) and, with every shard's ``IOStats``, to the
 JAX package's ``lrr`` engine on the same stream; a recording tracer
 holds ``lsm.rt_mem``, ``lsm.rt_probe`` and ``lsm.rt_insert`` to where
-they must open.
+they must open, and ``lsm.rt_step_merge`` (a flush or compaction that
+carries a level block's step function) with them to integer attributes
+and to ``lrr`` stores alone.
 """
 
 import sys
@@ -38,7 +40,8 @@ UNIVERSE = 1 << 20
 RANGE = 1500
 SHARDS = 8
 ROUNDS = 10
-RT_SPANS = ("lsm.rt_mem", "lsm.rt_probe", "lsm.rt_insert")
+RT_SPANS = ("lsm.rt_mem", "lsm.rt_probe", "lsm.rt_insert",
+            "lsm.rt_step_merge")
 
 
 def make_engine(torch_side: bool, strategy: str, scheduler: bool):
